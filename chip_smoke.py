@@ -5,15 +5,23 @@
 
 Phases, each printing a line:
   1. device: the card, its power limit; TF32 off for fp32 comparisons;
-  2. build: compile the CUDA kernels from ocrfdet_tpu_torch/csrc/;
-  3. K1 (stereo cost volume) at flagship shape, kernel vs plain;
-  4. K2 (BEV pool) at flagship shape, kernel vs plain;
-  5. slice: the flagship eval forward with_ocrf=False through
-     `entry.infer` on a window of 100 requests after warm-up (launch
-     counts checked; latency median/p90, frames/s over the window), then
-     one request in fp32 with the kernels and with their plain versions;
-  6. one JSON line describing every kernel, the card's name and power
-     limit, and last `{"ok": true, "device": {...}}`.
+  2. build: compile the CUDA kernels from ocrfdet_tpu_torch/csrc/ (one
+     nvcc per source, all at once) and the host NMS library;
+  3. K1 (stereo cost volume), K2 (BEV pool), K3 (HT pool) and K4 (voxel
+     point sample) at flagship shapes, each kernel vs its plain version;
+  4. the BEVDepth slice (`ocrfdet_config(batch_size=1,
+     with_ocrf=False)`) through `entry.infer` on a window of 30 requests
+     after warm-up (2 K1 + 2 K2 launches per request), then one request
+     in fp32 with the kernels and with their plain versions;
+  5. the main path, the flagship OcRF slice (`ocrfdet_config(
+     batch_size=1)`: OcRF + HOA, host NMS) through `entry.infer` on a
+     window of 100 requests after 5 warm-up requests (exactly 2 launches
+     of each of K1-K4 per request; latency median/p90, frames/s, host
+     dispatch, device wait and host NMS times), then the fp32 request
+     with the kernels and with their plain versions;
+  6. one JSON line describing every kernel (launches from the main
+     path's window), the card's name and power limit, and last
+     `{"ok": true, "device": {...}}`.
 Any failure raises and exits non-zero before the last line. It needs
 CUDA and the repository around it; imports no JAX.
 """
@@ -27,6 +35,7 @@ import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
@@ -37,19 +46,26 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls."""
+def device_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of fn() over `reps` calls: the summed durations
+    of the device kernels, copies and memsets it launches, as
+    torch.profiler records them on the card. (A host clock or CUDA
+    events around back-to-back calls would time the Python wrapper
+    instead wherever a kernel runs shorter than its launch overhead.)"""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.end - e.time_range.start
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return busy_us / reps / 1e3
 
 
 def bound(nbytes: float, flops: float):
@@ -97,8 +113,8 @@ def check_k1(cfg, dev):
     # tolerance: another channel-sum order only (the coordinates round
     # identically, so no flag may flip)
     ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-3))
-    ms = cuda_ms(lambda: cvm.cost_volume(*args), reps=20)
-    plain_ms = cuda_ms(lambda: cvm.cost_volume_plain(*args), reps=2)
+    ms = device_ms(lambda: cvm.cost_volume(*args), reps=20)
+    plain_ms = device_ms(lambda: cvm.cost_volume_plain(*args), reps=2)
     # the work this data needs: 2 flops per channel per in-image tap,
     # 3 per channel per sample (sub, abs, add)
     den = depths[None, :, None] * az.reshape(N, 1, -1) + bz.reshape(N, 1, 1)
@@ -165,16 +181,16 @@ def check_k2(cfg, dev):
     max_abs = float((got - want).abs().max())
     # atomics reorder fp32 sums: rtol 1e-5 / atol 1e-5
     ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
-    ms = cuda_ms(lambda: bp.bev_pool_points(w, pix, cell, featp, cells),
+    ms = device_ms(lambda: bp.bev_pool_points(w, pix, cell, featp, cells),
                  reps=50)
-    plain_ms = cuda_ms(
+    plain_ms = device_ms(
         lambda: bp.bev_pool_points_plain(w, pix, cell, featp, cells), reps=10)
     # yardstick: one index_add_ of the precomputed weighted rows
     keep = cell[0] < cells
     rows = featp[0, pix[0, keep].long()] * w[0, keep, None]
     idx = cell[0, keep].long()
     acc = torch.zeros((cells, C), device=dev)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, idx, rows), reps=50)
+    library_ms = device_ms(lambda: acc.index_add_(0, idx, rows), reps=50)
     n_valid = int(keep.sum())
     moved = nbytes(w, pix, cell, featp, want)
     bound_ms, bound_by = bound(moved, 2 * C * n_valid)
@@ -189,15 +205,128 @@ def check_k2(cfg, dev):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def flagship_projection(cfg, dev):
+    """The key frame's HT projection (uvd, valid) of make_batch."""
+    from ocrfdet_tpu_torch.entry import make_batch
+    from ocrfdet_tpu_torch.geometry import frustum as FR
+
+    batch = make_batch(cfg, seed=0, device=dev)
+    grid, vt = cfg.grid, cfg.vt
+    cams = [batch[k][:, 0] for k in ("rots", "trans", "intrins",
+                                     "post_rots", "post_trans")]
+    l2i, aug = FR.ego_to_image(*cams, batch["bda"])
+    ref = torch.from_numpy(FR.ht_reference_points(
+        vt.bev_h, vt.bev_w, vt.num_height,
+        z_pillar=grid.z[1] - grid.z[0])).to(dev)
+    return FR.project_points(ref, grid.pc_range, (grid.depth[0],
+                                                  grid.depth[1]),
+                             l2i, aug, cfg.data.input_size)
+
+
+def check_k3(cfg, dev):
+    """K3 at flagship shape: the key frame's projection, thresholded
+    softmax depth, random context."""
+    from ocrfdet_tpu_torch.ops import ht_pool as htp
+
+    uvd, valid = flagship_projection(cfg, dev)
+    N, D, C = cfg.data.num_cams, cfg.grid.num_depth_bins, cfg.vt.out_channels
+    h = cfg.data.input_size[0] // cfg.vt.downsample
+    w = cfg.data.input_size[1] // cfg.vt.downsample
+    g = torch.Generator(device=dev).manual_seed(2)
+    depth = torch.randn((1, N, h, w, D), generator=g, device=dev).softmax(-1)
+    depth = torch.where(depth < cfg.vt.depth_threshold / D,
+                        torch.zeros_like(depth), depth)
+    ctx = torch.randn((1, N, h, w, C), generator=g, device=dev)
+    args = htp.ht_pool_inputs(depth, ctx, uvd, valid)
+    got = htp.ht_pool_points(*args)
+    want = htp.ht_pool_points_plain(*args)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    # the plain version sums the heights in its own order: rtol 1e-5,
+    # atol 1e-5 of the output scale
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale))
+    ms = device_ms(lambda: htp.ht_pool_points(*args), reps=50)
+    plain_ms = device_ms(lambda: htp.ht_pool_points_plain(*args), reps=5)
+    n_valid = int(args[4].sum())
+    moved = nbytes(*args, want)
+    bound_ms, bound_by = bound(moved, n_valid * (2 * C + 1))
+    log(f"[k3] ht_pool {tuple(got.shape)}: max_abs_err {max_abs:.3e} "
+        f"(max |out| {scale:.3f}; tol rtol 1e-5 atol 1e-5 x scale: "
+        f"{'ok' if ok else 'FAIL'}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, no library call; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({moved / 1e6:.2f} MB, {n_valid} of "
+        f"{args[4].numel()} points valid)")
+    if not ok:
+        raise AssertionError("K3 kernel disagrees with its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def check_k4(cfg, dev):
+    """K4 at flagship shape: random alpha maps at full image resolution
+    (C = 1, as at eval) sampled at the key frame's projected points."""
+    import torch.nn.functional as F
+    from ocrfdet_tpu_torch.ops import point_sample as ps
+
+    uvd, _ = flagship_projection(cfg, dev)
+    N = cfg.data.num_cams
+    H, W = cfg.vt.render_image_size
+    P = uvd.shape[2] * uvd.shape[3]
+    g = torch.Generator(device=dev).manual_seed(3)
+    maps = torch.rand((N, H, W, 1), generator=g, device=dev)
+    px = (uvd[0, ..., 0] * W).reshape(N, P).contiguous()
+    py = (uvd[0, ..., 1] * H).reshape(N, P).contiguous()
+    got = ps.point_sample_points(maps, px, py)
+    want = ps.point_sample_points_plain(maps, px, py)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    # the same separately rounded products and sums: rtol 1e-5 / atol 1e-6
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
+    ms = device_ms(lambda: ps.point_sample_points(maps, px, py), reps=50)
+    plain_ms = device_ms(lambda: ps.point_sample_points_plain(maps, px, py),
+                       reps=10)
+    # yardstick: one F.grid_sample (align_corners=False: x_n = (2 px +
+    # 1) / W - 1) of the same maps at the same points
+    grid = torch.stack([(2 * px + 1) / W - 1, (2 * py + 1) / H - 1],
+                       -1)[:, None]
+    maps_nchw = maps.permute(0, 3, 1, 2).contiguous()
+
+    def library():
+        return F.grid_sample(maps_nchw, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=False)
+    lib_err = float((library()[:, 0, 0] - got[..., 0]).abs().max())
+    library_ms = device_ms(library, reps=50)
+    moved = nbytes(maps, px, py, want)
+    # operations: 4 products and 3 sums per output value, ~12 per point
+    # for its tap weights
+    bound_ms, bound_by = bound(moved, 7 * got.numel() + 12 * px.numel())
+    log(f"[k4] point_sample {tuple(got.shape)}: max_abs_err {max_abs:.3e} "
+        f"(tol rtol 1e-5 atol 1e-6: {'ok' if ok else 'FAIL'}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
+        f"{library_ms:.4f} ms (max |diff| to it {lib_err:.3e}); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB)")
+    if not ok:
+        raise AssertionError("K4 kernel disagrees with its plain version")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel wrappers to their plain versions (for a
     reference run on the card)."""
     from ocrfdet_tpu_torch.ops import bev_pool as bp
     from ocrfdet_tpu_torch.ops import cost_volume as cvm
+    from ocrfdet_tpu_torch.ops import ht_pool as htp
+    from ocrfdet_tpu_torch.ops import point_sample as ps
     with mock.patch.object(cvm, "cost_volume", cvm.cost_volume_plain), \
             mock.patch.object(bp, "bev_pool_points",
-                              bp.bev_pool_points_plain):
+                              bp.bev_pool_points_plain), \
+            mock.patch.object(htp, "ht_pool_points",
+                              htp.ht_pool_points_plain), \
+            mock.patch.object(ps, "point_sample_points",
+                              ps.point_sample_points_plain):
         yield
 
 
@@ -207,81 +336,104 @@ def percentile(xs, q: float) -> float:
     return xs[min(len(xs) - 1, max(0, round(q / 100 * len(xs)) - 1))]
 
 
-def check_slice(cfg, dev, kernel_list, n_requests=100, n_batches=8,
-                n_warmup=5):
+def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
+                n_batches=8, n_warmup=5):
     """Answer `n_requests` flagship requests (cycling over make_batch
-    seeds 0..n_batches-1) after `n_warmup` warm-up requests, one at a
-    time as a server would. Per request it times, on the host clock,
-    the dispatch (until `entry.infer` returns; the forward has no host
-    sync) and the whole request (until `torch.cuda.synchronize()`
-    returns); over the whole window, the main thread's CPU time (the
-    thread CPU clock may tick only every few ms, too coarse for one
-    request)."""
+    seeds 0..n_batches-1) through `entry.infer` after `n_warmup` warm-up
+    requests, one at a time as a server would. Every kernel's count is
+    set to 0 just before the window and read just after: each of
+    `path_kernels` must have launched exactly twice per request (once
+    per temporal frame), every other kernel never. Per request it takes
+    the host-clock times `entry.infer` records (dispatch of the forward
+    and decode, the wait for the decoded boxes, host NMS) and the whole
+    request (until `entry.infer` returns); over the window, the main
+    thread's CPU time (the thread CPU clock may tick only every few ms,
+    too coarse for one request)."""
     from ocrfdet_tpu_torch import entry
     from ocrfdet_tpu_torch.models.detector import OcRFDet
 
     t0 = time.perf_counter()
     model = entry.build_detector(cfg, dev, seed=0)
-    log(f"[slice] built the flagship with_ocrf=False detector on {dev} "
-        f"({sum(p.numel() for p in model.parameters()) / 1e6:.2f} M params, "
-        f"{time.perf_counter() - t0:.1f} s)")
+    log(f"[{tag}] built the flagship with_ocrf={cfg.with_ocrf} detector on "
+        f"{dev} ({sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
+        f"params, {time.perf_counter() - t0:.1f} s)")
     batches = [entry.make_batch(cfg, seed=s, device=dev)
                for s in range(n_batches)]
     for i in range(n_warmup):
         entry.infer(model, batches[i % n_batches])
     torch.cuda.synchronize()
-    for k in kernel_list:
+    for k in all_kernels:
         k.launches = 0
-    wall, dispatch, outs = [], [], []
+    wall, parts, outs = [], [], []
     t_window, cpu_window = time.perf_counter(), time.thread_time()
     for i in range(n_requests):
+        timings = {}
         t = time.perf_counter()
-        out = entry.infer(model, batches[i % n_batches])
-        t_issued = time.perf_counter()
-        torch.cuda.synchronize()
+        out = entry.infer(model, batches[i % n_batches], timings=timings)
         wall.append(time.perf_counter() - t)
-        dispatch.append(t_issued - t)
+        parts.append(timings)
         if i < n_batches:
             outs.append(out)
+    torch.cuda.synchronize()
     window = time.perf_counter() - t_window
     cpu_window = time.thread_time() - cpu_window
-    launches = {k.name: k.launches for k in kernel_list}
-    for name, n in launches.items():
-        if n != 2 * n_requests:
-            raise AssertionError(f"{name}: {n} launches over {n_requests} "
-                                 f"requests, expected {2 * n_requests}")
+    launches = {k.name: k.launches for k in all_kernels}
+    for k in all_kernels:
+        want = 2 * n_requests if k in path_kernels else 0
+        if launches[k.name] != want:
+            raise AssertionError(f"{k.name}: {launches[k.name]} launches "
+                                 f"over {n_requests} requests, expected "
+                                 f"{want}")
     D = cfg.grid.num_depth_bins
     N = cfg.data.num_cams
     h = cfg.data.input_size[0] // cfg.vt.downsample
     w = cfg.data.input_size[1] // cfg.vt.downsample
-    for preds, aux, decoded in outs:
+    Y, X = cfg.vt.bev_h, cfg.vt.bev_w
+    logit_keys = (("bev_mask_logit", "opacity_bev_logit") if cfg.with_ocrf
+                  else ())
+    for preds, aux, decoded, dets in outs:
         heat = preds[0]["heatmap"]
-        if tuple(heat.shape) != (1, cfg.vt.bev_h, cfg.vt.bev_w, 1):
+        if tuple(heat.shape) != (1, Y, X, 1):
             raise AssertionError(f"heatmap shape {tuple(heat.shape)}")
         if tuple(aux["depth"].shape) != (1, N, h, w, D):
             raise AssertionError(f"depth shape {tuple(aux['depth'].shape)}")
+        for k in logit_keys:
+            if tuple(aux[k].shape) != (1, Y, X, 1):
+                raise AssertionError(f"{k} shape {tuple(aux[k].shape)}")
         tensors = [v for p in preds for v in p.values()]
-        tensors += [aux["depth"], aux["semantic"]]
+        tensors += [aux[k] for k in ("depth", "semantic") + logit_keys]
         tensors += [d.boxes for d in decoded] + [d.scores for d in decoded]
         for t in tensors:
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError("non-finite output")
         if float((aux["depth"].sum(-1) - 1).abs().max()) > 1e-3:
             raise AssertionError("depth is not a distribution over bins")
+        if len(dets) != 1 or dets[0]["boxes"].shape[1:] != (9,) \
+                or not np.isfinite(dets[0]["boxes"]).all():
+            raise AssertionError("malformed detections")
 
     def ms(xs, q):
         return f"{percentile(xs, q) * 1e3:.3f}"
 
-    log(f"[slice] {n_requests} requests after {n_warmup} warm-up (batch 1, "
+    def col(name):
+        return [p[name] for p in parts]
+    valid = sum(int(d.valid.sum()) for d in outs[0][2])
+    log(f"[{tag}] {n_requests} requests after {n_warmup} warm-up (batch 1, "
         f"{cfg.total_frames} frames x {N} cams at {cfg.data.input_size}, "
         f"{cfg.compute_dtype}) in a {window:.3f} s window: "
         f"{n_requests / window:.3f} frames/s; latency ms median "
         f"{ms(wall, 50)} p90 {ms(wall, 90)} min {ms(wall, 0)} max "
-        f"{ms(wall, 100)}; host dispatch ms median {ms(dispatch, 50)} p90 "
-        f"{ms(dispatch, 90)}, {sum(dispatch) / sum(wall):.2%} of the "
-        f"requests' time; main thread on CPU {cpu_window:.3f} s of the "
-        f"window ({cpu_window / window:.2%}); launches {launches}; "
-        f"{sum(int(d.valid.sum()) for d in outs[0][2])} valid boxes")
+        f"{ms(wall, 100)}; host dispatch ms median "
+        f"{ms(col('dispatch'), 50)} p90 {ms(col('dispatch'), 90)}, "
+        f"{sum(col('dispatch')) / sum(wall):.2%} of the requests' time; "
+        f"wait for the device ms median {ms(col('wait'), 50)}; main thread "
+        f"on CPU {cpu_window:.3f} s of the window "
+        f"({cpu_window / window:.2%}); launches {launches}")
+    log(f"[{tag}] decode + NMS on the host: NMS ms median "
+        f"{ms(col('nms'), 50)} p90 {ms(col('nms'), 90)}, copy of the "
+        f"decoded boxes (after the device is done) in the wait above; "
+        f"{valid} decoded boxes above threshold -> "
+        f"{len(outs[0][3][0]['boxes'])} detections (request 0)")
 
     # the same request in fp32, with the kernels and with the plain
     # versions, on the same weights
@@ -289,41 +441,41 @@ def check_slice(cfg, dev, kernel_list, n_requests=100, n_batches=8,
     m32 = OcRFDet(cfg32)
     m32.load_state_dict(model.state_dict())
     m32 = m32.eval().to(dev)
-    before = [k.launches for k in kernel_list]
-    k_preds, k_aux, _ = entry.infer(m32, batches[0])
-    after = [k.launches for k in kernel_list]
+    del model
+    before = [k.launches for k in all_kernels]
+    k_preds, k_aux, _, _ = entry.infer(m32, batches[0])
+    after = [k.launches for k in all_kernels]
     with plain_versions():
-        p_preds, p_aux, _ = entry.infer(m32, batches[0])
+        p_preds, p_aux, _, _ = entry.infer(m32, batches[0])
     torch.cuda.synchronize()
-    plain_after = [k.launches for k in kernel_list]
-    for k, b, a, p in zip(kernel_list, before, after, plain_after):
-        if a != b + 2 or p != a:
+    plain_after = [k.launches for k in all_kernels]
+    for k, b, a, p in zip(all_kernels, before, after, plain_after):
+        want = 2 if k in path_kernels else 0
+        if a != b + want or p != a:
             raise AssertionError(
                 f"{k.name}: {a - b} launches in the fp32 kernel run "
-                f"(expected 2), {p - a} in the plain run (expected 0)")
-    errs = {}
-    for name, a, b in (("heatmap", k_preds[0]["heatmap"],
-                        p_preds[0]["heatmap"]),
-                       ("depth", k_aux["depth"], p_aux["depth"])):
-        err = float((a - b).abs().max())
-        scale = float(b.abs().max())
-        errs[name] = (err, scale)
+                f"(expected {want}), {p - a} in the plain run (expected 0)")
+    compared = [("heatmap", k_preds[0]["heatmap"], p_preds[0]["heatmap"]),
+                ("depth", k_aux["depth"], p_aux["depth"])]
+    compared += [(k, k_aux[k], p_aux[k]) for k in logit_keys[1:]]
+    errs = {name: (float((a - b).abs().max()), float(b.abs().max()))
+            for name, a, b in compared}
     bf_heat = float((outs[0][0][0]["heatmap"].float()
                      - p_preds[0]["heatmap"]).abs().max())
     bf_depth = float((outs[0][1]["depth"] - p_aux["depth"]).abs().max())
-    log(f"[slice] fp32 kernels vs fp32 plain: heatmap max_abs_err "
-        f"{errs['heatmap'][0]:.3e} (max |heatmap| {errs['heatmap'][1]:.3f}), "
-        f"depth max_abs_err {errs['depth'][0]:.3e}; bf16 kernels (as "
-        f"configured) vs fp32 plain: heatmap {bf_heat:.3e}, depth "
-        f"{bf_depth:.3e}")
+    log(f"[{tag}] fp32 kernels vs fp32 plain: " + ", ".join(
+        f"{name} max_abs_err {e:.3e} (max |{name}| {sc:.3f})"
+        for name, (e, sc) in errs.items())
+        + f"; bf16 kernels (as configured) vs fp32 plain: heatmap "
+        f"{bf_heat:.3e}, depth {bf_depth:.3e}")
     # tolerance: the kernels differ from their plain versions only in
-    # fp32 summation order: heatmap 1e-3 of its scale, depth
-    # probabilities 1e-5
-    tol = {"heatmap": 1e-3 * max(1.0, errs["heatmap"][1]), "depth": 1e-5}
-    for name, (err, _) in errs.items():
-        if err > tol[name]:
+    # fp32 summation order: the heatmap and the opacity logit 1e-3 of
+    # their scale, the depth probabilities 1e-5
+    for name, (err, scale) in errs.items():
+        tol = 1e-5 if name == "depth" else 1e-3 * max(1.0, scale)
+        if err > tol:
             raise AssertionError(f"{name}: kernels vs plain {err:.3e} > "
-                                 f"{tol[name]:.1e}")
+                                 f"{tol:.1e}")
     return launches
 
 
@@ -335,6 +487,9 @@ def main() -> int:
     from ocrfdet_tpu_torch.config import ocrfdet_config
     from ocrfdet_tpu_torch.ops import bev_pool as bp
     from ocrfdet_tpu_torch.ops import cost_volume as cvm
+    from ocrfdet_tpu_torch.ops import ht_pool as htp
+    from ocrfdet_tpu_torch.ops import nms
+    from ocrfdet_tpu_torch.ops import point_sample as ps
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -350,15 +505,24 @@ def main() -> int:
         f"cuDNN and matmul (fp32 comparisons)")
 
     t = time.perf_counter()
-    kernel_list = [cvm.KERNEL, bp.KERNEL]
+    kernel_list = [cvm.KERNEL, bp.KERNEL, htp.KERNEL, ps.KERNEL]
     kernels.build(kernel_list)
-    log(f"[build] {', '.join(k.source for k in kernel_list)} -> "
-        f"{kernels.BUILD_DIR.name}/ in {time.perf_counter() - t:.1f} s")
+    nms.native_library()
+    log(f"[build] {', '.join(k.source for k in kernel_list)} (nvcc) and "
+        f"nms.cpp (c++) -> {kernels.BUILD_DIR.name}/ in "
+        f"{time.perf_counter() - t:.1f} s")
 
-    cfg = ocrfdet_config(batch_size=1, with_ocrf=False)
+    cfg = ocrfdet_config(batch_size=1)
+    lss_cfg = ocrfdet_config(batch_size=1, with_ocrf=False)
     stats = {"cost_volume": check_k1(cfg, dev),
-             "bev_pool": check_k2(cfg, dev)}
-    launches = check_slice(cfg, dev, kernel_list)
+             "bev_pool": check_k2(cfg, dev),
+             "ht_pool": check_k3(cfg, dev),
+             "point_sample": check_k4(cfg, dev)}
+    check_slice(lss_cfg, dev, "lss", kernel_list[:2], kernel_list,
+                n_requests=30)
+    torch.cuda.empty_cache()
+    launches = check_slice(cfg, dev, "ocrf", kernel_list, kernel_list,
+                           n_requests=100)
 
     rows = []
     for k in kernel_list:

@@ -9,6 +9,7 @@ Its Pallas kernels become hand-written CUDA kernels (`csrc/`, built by
 `kernels.py`), each with a plain PyTorch version beside it that runs
 for CPU tensors.
 
-Ported so far: the eval forward of `ocrfdet_config(with_ocrf=False)`
-(see `entry.py`).
+Ported so far: the eval forward of the flagship
+`ocrfdet_config(batch_size=1)` with the OcRF branch and HOA, and of its
+`with_ocrf=False` slice, with host NMS (see `entry.py`).
 """

@@ -2,16 +2,18 @@
 
     model = build_detector(cfg)                  # on "cuda" by default
     batch = make_batch(cfg, seed=0)
-    preds, aux, decoded = infer(model, batch)    # one request
+    preds, aux, decoded, detections = infer(model, batch)   # one request
 
-`entry()` returns the flagship eval forward and its example batch, as
-the JAX package's `__graft_entry__.entry()` does, for the part ported so
-far: `ocrfdet_config(batch_size=1, with_ocrf=False)`. Everything runs on
-the card unless the caller passes `device="cpu"`; without CUDA the
-default device raises. Host NMS is not ported yet.
+The default config is the flagship `ocrfdet_config(batch_size=1)`, with
+the OcRF branch and HOA on; `with_ocrf=False` selects the BEVDepth-style
+LSS slice. `entry()` returns the flagship eval forward and its example
+batch, as the JAX package's `__graft_entry__.entry()` does. Everything
+runs on the card unless the caller passes `device="cpu"`; without CUDA
+the default device raises.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -21,6 +23,7 @@ from .config import OcRFDetConfig, ocrfdet_config
 from .core.coder import decode_all_tasks
 from .data import synthetic
 from .models.detector import OcRFDet
+from .ops.nms import multi_task_nms
 from .utils.weights import init_weights
 
 
@@ -37,7 +40,7 @@ def build_detector(cfg: Optional[OcRFDetConfig] = None, device=None,
                    seed: int = 0) -> OcRFDet:
     """The eval-mode detector with seeded random weights on `device`."""
     device = resolve_device(device)
-    cfg = cfg or ocrfdet_config(batch_size=1, with_ocrf=False)
+    cfg = cfg or ocrfdet_config(batch_size=1)
     model = init_weights(OcRFDet(cfg), seed)
     return model.eval().to(device)
 
@@ -52,18 +55,38 @@ def make_batch(cfg: OcRFDetConfig, seed: int = 0, batch_size: int = 1,
 
 
 @torch.inference_mode()
-def infer(model: OcRFDet, batch: Dict[str, torch.Tensor]):
-    """Answer one request: (preds, aux, decoded boxes per task)."""
+def infer(model: OcRFDet, batch: Dict[str, torch.Tensor],
+          timings: Optional[Dict[str, float]] = None):
+    """Answer one request: (preds, aux, decoded boxes per task,
+    detections), with detections one `multi_task_nms` result (numpy
+    boxes [M,9] bottom-centred, scores [M], labels [M]) per sample.
+
+    With `timings`, it records host-clock seconds: `dispatch` (the
+    forward and the decode issued), `wait` (the decoded boxes copied to
+    the host, which waits for the device) and `nms`."""
+    t0 = time.perf_counter()
     preds, aux = model(batch)
     decoded = decode_all_tasks(preds, model.cfg.head, model.cfg.grid)
-    return preds, aux, decoded
+    t1 = time.perf_counter()
+    host = [{k: v.cpu().numpy() for k, v in d._asdict().items()}
+            for d in decoded]
+    t2 = time.perf_counter()
+    B = batch["imgs"].shape[0]
+    detections = [multi_task_nms([{k: v[b] for k, v in d.items()}
+                                  for d in host], model.cfg.head)
+                  for b in range(B)]
+    if timings is not None:
+        timings.update(dispatch=t1 - t0, wait=t2 - t1,
+                       nms=time.perf_counter() - t2)
+    return preds, aux, decoded, detections
 
 
 def entry(device=None):
-    """(fwd, (batch,)) for the flagship eval forward with_ocrf=False;
-    fwd(batch) -> (heatmap of task 0, key-frame depth)."""
+    """(fwd, (batch,)) for the flagship eval forward
+    `ocrfdet_config(batch_size=1)`; fwd(batch) -> (heatmap of task 0,
+    key-frame depth)."""
     device = resolve_device(device)
-    cfg = ocrfdet_config(batch_size=1, with_ocrf=False)
+    cfg = ocrfdet_config(batch_size=1)
     model = build_detector(cfg, device)
     batch = make_batch(cfg, seed=0, device=device)
 

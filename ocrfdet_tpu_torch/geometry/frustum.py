@@ -1,9 +1,9 @@
-"""Frustum / voxel-grid geometry for the LSS splat (counterpart of
-ocrfdet_tpu/geometry/frustum.py).
+"""Frustum / voxel-grid geometry for the LSS splat and the HT branch
+(counterpart of ocrfdet_tpu/geometry/frustum.py).
 
-The templates (`sid_depth_bins`, `make_frustum`) are numpy constants
-built from the config; the projections are torch tensor functions on
-channel-last [..., 3] points.
+The templates (`sid_depth_bins`, `make_frustum`, `ht_reference_points`)
+are numpy constants built from the config; the projections are torch
+tensor functions on channel-last [..., 3] points.
 """
 from __future__ import annotations
 
@@ -68,3 +68,72 @@ def voxel_indices(coor, grid_lower, grid_interval, grid_size):
              (idx[..., 1] >= 0) & (idx[..., 1] < grid_size[1]) &
              (idx[..., 2] >= 0) & (idx[..., 2] < grid_size[2]))
     return idx, valid
+
+
+def ht_reference_points(bev_h: int, bev_w: int, num_height: int = 13,
+                        z_pillar: float = 8.0) -> np.ndarray:
+    """Normalised [0,1]^3 sample points of the height-trick branch,
+    [Z, bev_h*bev_w, 3]: per pillar 5 heights linspace(3, Z-1) then
+    num_height-5 heights linspace(0.5, Z-0.5), all divided by Z."""
+    zs_l = np.linspace(3.0, z_pillar - 1.0, 5)
+    zs_g = np.linspace(0.5, z_pillar - 0.5, num_height - 5)
+    zs = np.concatenate([zs_l, zs_g]) / z_pillar
+    xs = (np.arange(bev_w) + 0.5) / bev_w
+    ys = (np.arange(bev_h) + 0.5) / bev_h
+    out = np.empty((num_height, bev_h, bev_w, 3), dtype=np.float32)
+    out[..., 0] = xs[None, None, :]
+    out[..., 1] = ys[None, :, None]
+    out[..., 2] = zs[:, None, None]
+    return out.reshape(num_height, bev_h * bev_w, 3)
+
+
+def ego_to_image(rots, trans, intrins, post_rots, post_trans, bda):
+    """The (BDA-aware) ego->image projection of the HT branch.
+
+    Returns (lidar2img [B,N,3,4], img_aug [B,N,3,4]): a homogeneous ego
+    point X projects to p = lidar2img[..., :3] @ X + lidar2img[..., 3],
+    then (u, v) = img_aug applied to (p.xy / p.z, p.z, 1).
+    """
+    B, N = rots.shape[:2]
+    bda_bn = bda[:, None].expand(B, N, 3, 3)
+    inv_rot = torch.linalg.inv(rots)
+    R = intrins @ inv_rot @ torch.linalg.inv(bda_bn)
+    t = -(intrins @ inv_rot @ trans[..., None])
+    lidar2img = torch.cat([R, t], dim=-1)
+    img_aug = torch.cat([post_rots, post_trans[..., None]], dim=-1)
+    return lidar2img, img_aug
+
+
+def project_points(ref_points, pc_range, depth_range, lidar2img, img_aug,
+                   image_size):
+    """Project normalised grid points into every camera.
+
+    ref_points [Z, Nq, 3] in [0,1]^3; lidar2img/img_aug [B,N,3,4].
+    Returns uvd [B,N,Z,Nq,3] (u, v normalised to the [0,1] image, d to
+    [0,1] over depth_range) and valid [B,N,Z,Nq] bool (in front of the
+    camera, strictly inside the image and the depth range). The
+    operations and their order are the JAX package's, in fp32, so that
+    the nearest-index rounding downstream (ops/ht_pool.py) agrees.
+    """
+    pc = torch.tensor(pc_range, dtype=torch.float32,
+                      device=ref_points.device)
+    p = ref_points * (pc[3:6] - pc[0:3]) + pc[0:3]          # [Z,Nq,3]
+    Z, Nq = p.shape[:2]
+    B, N = lidar2img.shape[:2]
+    p = p.reshape(Z * Nq, 3)
+    cam = torch.einsum('bnij,kj->bnki', lidar2img[..., :3], p) \
+        + lidar2img[..., None, :, 3]
+    eps = 1e-5
+    depth = cam[..., 2:3]
+    in_front = depth > eps
+    uv1 = torch.cat([cam[..., 0:2] / torch.clamp(depth, min=eps),
+                     depth, torch.ones_like(depth)], dim=-1)
+    uv = torch.einsum('bnij,bnkj->bnki', img_aug, uv1)[..., 0:2]
+    H, W = image_size
+    u = uv[..., 0] / W
+    v = uv[..., 1] / H
+    d = (depth[..., 0] - depth_range[0]) / (depth_range[1] - depth_range[0])
+    valid = (in_front[..., 0] & (u > 0.0) & (u < 1.0) & (v > 0.0)
+             & (v < 1.0) & (d > 0.0) & (d < 1.0))
+    uvd = torch.stack([u, v, d], dim=-1).reshape(B, N, Z, Nq, 3)
+    return uvd, valid.reshape(B, N, Z, Nq)

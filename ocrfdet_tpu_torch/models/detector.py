@@ -1,9 +1,12 @@
-"""OcRFDet detector assembly, eval forward with `with_ocrf=False`
-(counterpart of ocrfdet_tpu/models/detector.py).
+"""OcRFDet detector assembly, eval forward (counterpart of
+ocrfdet_tpu/models/detector.py).
 
-ResNet backbone -> CustomFPN (per camera) -> LSS view transformer with
-the stereo cost volume (kernel K1) and the splat (kernel K2) -> per-frame
-BEV pre-process -> temporal concat -> CustomResNet + FPN_LSS -> CenterHead.
+ResNet backbone -> CustomFPN (per camera) -> view transformer with the
+stereo cost volume (kernel K1): with `with_ocrf` the OcRF view
+transformer (LSS splat K2, HT pool K3, NeRF alphas sampled by K4, HOA,
+fusion and gates; models/ocrf/), else the LSS view transformer and its
+splat (K2) -> per-frame BEV pre-process -> temporal concat ->
+CustomResNet + FPN_LSS -> CenterHead.
 
 Batch layout (channel-last, as the JAX package):
   imgs          [B, F, N, H, W, 3]   F = num_frames (+1 stereo ref)
@@ -17,7 +20,7 @@ stem only; the cost volume of frame f is built from (stem_f, stem_{f+1})
 with k2s_sensor[:, f] and frame f's cameras; non-key BEV features are
 detached and multiplied by `with_prev`. The conv towers run in
 `cfg.compute_dtype` under autocast; geometry, the cost volume, the depth
-softmax and the splat run in fp32.
+softmax, the splat, the HT pool and the point sampling run in fp32.
 """
 from __future__ import annotations
 
@@ -33,14 +36,13 @@ from ..ops.cost_volume import stereo_cost_volume
 from .centerhead import CenterHead
 from .fpn import CustomFPN, FPN_LSS
 from .resnet import CustomResNet, ResNet
-from .view_transformer import CameraParams, LSSViewTransformer
+from .ocrf.view_transformer_ocrf import OcRFViewTransformer
+from .view_transformer import (CameraParams, LSSViewTransformer,
+                               towers_autocast)
 
 
 def check_supported(cfg: OcRFDetConfig) -> None:
     """Raise on the parts of the config this port does not run yet."""
-    if cfg.with_ocrf:
-        raise NotImplementedError(
-            "with_ocrf=True (the OcRF branch) is not ported yet")
     p = cfg.parallel
     if p.space_axis > 1 and (p.shard_cameras or p.shard_vt or p.shard_bev
                              or p.shard_render):
@@ -61,8 +63,8 @@ class OcRFDet(nn.Module):
         self.img_neck = CustomFPN(
             [ch[i] for i in cfg.backbone.out_indices[1:]],
             out_channels=cfg.vt.in_channels)
-        self.img_view_transformer = LSSViewTransformer(
-            cfg.grid, cfg.vt, cfg.data.input_size)
+        vt = OcRFViewTransformer if cfg.with_ocrf else LSSViewTransformer
+        self.img_view_transformer = vt(cfg.grid, cfg.vt, cfg.data.input_size)
         c = cfg.vt.out_channels
         self.pre_process = CustomResNet(c, (c,), num_layer=(2,), stride=(1,),
                                         backbone_output_ids=(0,))
@@ -74,10 +76,10 @@ class OcRFDet(nn.Module):
             chans[0] + chans[2], cfg.bev_encoder.neck_out_channels)
         self.pts_bbox_head = CenterHead(cfg.head)
 
-    def _towers(self, device: torch.device):
-        """Autocast context for the conv towers."""
-        return torch.autocast(device_type=device.type, dtype=self.dtype,
-                              enabled=self.dtype != torch.float32)
+    @property
+    def lss(self) -> LSSViewTransformer:
+        vt = self.img_view_transformer
+        return vt.lss if self.cfg.with_ocrf else vt
 
     def image_encoder(self, imgs, stem_only: bool = False):
         """imgs [B,N,H,W,3] -> (fpn [B,N,C,h,w] or None, stem
@@ -114,7 +116,7 @@ class OcRFDet(nn.Module):
         # prev goes in as it is: the cost volume rounds it to bf16
         cv = stereo_cost_volume(
             channel_last(stem).float(), channel_last(stem_prev),
-            self.img_view_transformer.cv_frustum, batch["k2s_sensor"][:, f],
+            self.lss.cv_frustum, batch["k2s_sensor"][:, f],
             cams.intrins, cams.post_rots, cams.post_trans,
             cfg.data.input_size, cfg.vt.depthnet.cost_volume_bias)
         B, N = cv.shape[:2]
@@ -123,24 +125,30 @@ class OcRFDet(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor]):
         """Returns (preds, aux): preds is one dict per task of
         channel-last [B,H,W,ch] maps; aux holds the key frame's depth
-        [B,N,h,w,D] and semantic [B,N,h,w,2]."""
+        [B,N,h,w,D] and semantic [B,N,h,w,2] and, with `with_ocrf`, its
+        bev_mask_logit and opacity_bev_logit [B,Y,X,1]."""
+        if self.training:
+            raise NotImplementedError(
+                "training is not ported yet: call .eval() first")
         cfg = self.cfg
         imgs = batch["imgs"]
         F_total = imgs.shape[1]
         key_cams = self._frame_cams(batch, 0)
-        towers = self._towers(imgs.device)
+
+        def towers():
+            return towers_autocast(imgs.device, self.dtype)
         stem_prev = None
         bev_feats = []          # temporal frames only, oldest first
         key_aux: Dict[str, torch.Tensor] = {}
         for f in range(F_total - 1, -1, -1):
             is_key = f == 0
             if cfg.use_stereo and f == F_total - 1:
-                with towers:
+                with towers():
                     _, stem_prev = self.image_encoder(imgs[:, f],
                                                       stem_only=True)
                 stem_prev = stem_prev.detach()
                 continue
-            with towers:
+            with towers():
                 fpn, stem = self.image_encoder(imgs[:, f])
             cams = self._frame_cams(batch, f)
             mlp_input = camera_mlp_input(
@@ -149,21 +157,27 @@ class OcRFDet(nn.Module):
             cv = None
             if cfg.use_stereo and stem_prev is not None:
                 cv = self._cost_volume(stem, stem_prev, batch, cams, f)
-            with towers:
-                depth, semantic, context = self.img_view_transformer(
-                    fpn, mlp_input, cost_volume=cv)
-            bev = self.img_view_transformer.splat(depth, context, cams)
-            with towers:
-                bev = self.pre_process(bev.permute(0, 3, 1, 2))[0]
+            if cfg.with_ocrf:
+                bev, aux = self.img_view_transformer(fpn, cams, mlp_input,
+                                                     cv, towers)
+            else:
+                with towers():
+                    depth, semantic, context = self.img_view_transformer(
+                        fpn, mlp_input, cost_volume=cv)
+                bev = self.img_view_transformer.splat(depth, context, cams) \
+                    .permute(0, 3, 1, 2)
+                aux = dict(depth=depth, semantic=semantic)
+            with towers():
+                bev = self.pre_process(bev)[0]
             if is_key:
-                key_aux = dict(depth=depth, semantic=semantic)
+                key_aux = aux
             else:
                 bev = bev.detach() * batch["with_prev"].to(bev.dtype)
             bev_feats.append(bev)
             stem_prev = stem.detach()
         # channel concat, oldest..key, as the reference
         bev_cat = torch.cat(bev_feats, dim=1)
-        with towers:
+        with towers():
             feats = self.img_bev_encoder_backbone(bev_cat)
             x = self.img_bev_encoder_neck(feats[0], feats[2])
             preds = self.pts_bbox_head(x)

@@ -18,6 +18,12 @@ from ..ops.bev_pool import bev_pool_lss
 from .depthnet import DepthNet
 
 
+def towers_autocast(device: torch.device, dtype: torch.dtype):
+    """Autocast context of the conv towers (off for fp32)."""
+    return torch.autocast(device_type=device.type, dtype=dtype,
+                          enabled=dtype != torch.float32)
+
+
 class CameraParams(NamedTuple):
     """Per-frame camera bundle (all [B, N, ...])."""
     rots: torch.Tensor        # [B,N,3,3] sensor->key-ego rotation
@@ -36,6 +42,7 @@ class LSSViewTransformer(nn.Module):
         super().__init__()
         self.grid = grid
         self.cfg = cfg
+        self.input_size = tuple(input_size)
         self.D = grid.num_depth_bins
         self.register_buffer("frustum", torch.from_numpy(FR.make_frustum(
             grid.depth, input_size, cfg.downsample)), persistent=False)

@@ -1,0 +1,141 @@
+"""Height-trick (HT) pillar pooling (counterpart of
+ocrfdet_tpu/ops/ht_pool.py).
+
+For every BEV pillar q, the Zh height points projected into each camera
+n pick the nearest feature pixel and depth bin (`_indices`: round, then
+clamp), and
+
+    out[b, q, :] = sum_n sum_z wv[b,n,z,q] * dep[b,n,pix,di] * ctx[b,n,pix,:]
+
+with wv = valid as fp32. `ht_pool` is the wrapper of kernel K3
+(`csrc/ht_pool.cu`, the counterpart of the Pallas `_ht_pool_mm`
+forward): for CUDA tensors it launches the kernel, for CPU tensors it
+runs `ht_pool_points_plain`, the per-camera gather of the JAX
+`ht_pool_ref`. Both compute in fp32 from the same index streams. The
+kernel's backward is not ported yet: on CUDA, backward raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+
+KERNEL = kernels.Kernel(
+    name="ht_pool", source="ht_pool.cu", symbol="ht_pool_forward",
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    replaces="ocrfdet_tpu/ops/ht_pool.py:169")   # _ht_pool_mm
+MAX_C = 128     # channels the kernel keeps in registers (4 per lane)
+
+
+def _indices(depth_shape, uvd, valid):
+    """Nearest feature pixel / depth bin per projected point. uvd
+    [B,N,Zh,Nq,3] normalised; returns pix, di int32 and wv f32, each
+    [B,N,Zh,Nq]. torch.round, like jnp.round, rounds half to even."""
+    B, N, h, w, D = depth_shape
+    ui = torch.clamp(torch.round(uvd[..., 0] * w).to(torch.int32), 0, w - 1)
+    vi = torch.clamp(torch.round(uvd[..., 1] * h).to(torch.int32), 0, h - 1)
+    di = torch.clamp(torch.round(uvd[..., 2] * D).to(torch.int32), 0, D - 1)
+    pix = vi * w + ui
+    return pix, di, valid.to(torch.float32)
+
+
+def ht_pool_points_plain(dep, ctx, pix, di, wv):
+    """Plain PyTorch version of kernel K3 on the index streams.
+
+    dep [B,N,HW,D] f32; ctx [B,N,HW,C] f32; pix/di [B,N,Zh,Nq] int;
+    wv [B,N,Zh,Nq] f32. Returns [B, Nq, C] f32: per camera one gather,
+    summed over heights, then added over cameras in order."""
+    B, N, HW, D = dep.shape
+    C = ctx.shape[-1]
+    Zh, Nq = pix.shape[2], pix.shape[3]
+    acc = torch.zeros((B, Nq, C), dtype=torch.float32, device=ctx.device)
+    for n in range(N):
+        p = pix[:, n].reshape(B, Zh * Nq).long()
+        dflat = p * D + di[:, n].reshape(B, Zh * Nq).long()
+        wgt = torch.gather(dep[:, n].reshape(B, HW * D), 1, dflat)
+        feat = torch.gather(ctx[:, n], 1, p[..., None].expand(-1, -1, C))
+        wgt = wgt * wv[:, n].reshape(B, Zh * Nq)
+        contrib = (feat * wgt[..., None]).reshape(B, Zh, Nq, C)
+        acc = acc + contrib.sum(dim=1)
+    return acc
+
+
+class _HtPoolCUDA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx_, dep, ctx, pix, di, wv):
+        B, N, HW, D = dep.shape
+        C = ctx.shape[-1]
+        Zh, Nq = pix.shape[2], pix.shape[3]
+        out = torch.empty((B, Nq, C), dtype=torch.float32, device=dep.device)
+        KERNEL.launch(kernels.ptr(dep), kernels.ptr(ctx), kernels.ptr(pix),
+                      kernels.ptr(di), kernels.ptr(wv), kernels.ptr(out),
+                      B, N, HW, D, C, Zh, Nq, kernels.stream_of(dep))
+        return out
+
+    @staticmethod
+    def backward(ctx_, grad_out):
+        raise NotImplementedError(
+            "ht_pool backward kernel is not ported yet (training slice)")
+
+
+def ht_pool_points(dep, ctx, pix, di, wv):
+    """K3 on the index streams (shapes as `ht_pool_points_plain`;
+    pix/di int32). Returns [B, Nq, C] f32."""
+    if dep.device.type == "cpu":
+        return ht_pool_points_plain(dep, ctx, pix, di, wv)
+    if dep.device.type != "cuda":
+        raise ValueError(f"ht_pool: unsupported device {dep.device}")
+    if dep.dim() != 4 or ctx.dim() != 4 or pix.dim() != 4:
+        raise ValueError("ht_pool: dep/ctx [B,N,HW,*] and pix/di/wv "
+                         "[B,N,Zh,Nq] expected")
+    B, N, HW, D = dep.shape
+    C = ctx.shape[-1]
+    if tuple(ctx.shape[:3]) != (B, N, HW):
+        raise ValueError(f"ht_pool: ctx {tuple(ctx.shape)} does not match "
+                         f"dep {tuple(dep.shape)}")
+    if not 0 < C <= MAX_C:
+        raise ValueError(f"ht_pool: C {C} outside (0, {MAX_C}]")
+    for name, t, dtype in (("dep", dep, torch.float32),
+                           ("ctx", ctx, torch.float32),
+                           ("pix", pix, torch.int32),
+                           ("di", di, torch.int32),
+                           ("wv", wv, torch.float32)):
+        if t.device != dep.device:
+            raise ValueError(f"ht_pool: {name} on {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"ht_pool: {name} must be {dtype}, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"ht_pool: {name} is not contiguous")
+        if name in ("di", "wv") and t.shape != pix.shape:
+            raise ValueError(f"ht_pool: {name} {tuple(t.shape)} != pix "
+                             f"{tuple(pix.shape)}")
+    if tuple(pix.shape[:2]) != (B, N):
+        raise ValueError(f"ht_pool: pix {tuple(pix.shape)} does not match "
+                         f"dep {tuple(dep.shape)}")
+    return _HtPoolCUDA.apply(dep, ctx, pix, di, wv)
+
+
+def ht_pool_inputs(depth, context, uvd, valid):
+    """K3's flat inputs from the module-level tensors: depth
+    [B,N,h,w,D] and context [B,N,h,w,C] as f32 [B,N,h*w,*], and the
+    index streams of `_indices`."""
+    B, N, h, w, D = depth.shape
+    C = context.shape[-1]
+    pix, di, wv = _indices(depth.shape, uvd, valid)
+    return (depth.reshape(B, N, h * w, D).float().contiguous(),
+            context.reshape(B, N, h * w, C).float().contiguous(),
+            pix.contiguous(), di.contiguous(), wv.contiguous())
+
+
+def ht_pool(depth, context, uvd, valid):
+    """Pool depth-weighted context at the nearest pixel / bin of every
+    projected height point, summed over heights and cameras.
+
+    depth [B,N,h,w,D]; context [B,N,h,w,C]; uvd [B,N,Zh,Nq,3] and valid
+    [B,N,Zh,Nq] from geometry.frustum.project_points. Returns [B, Nq, C]
+    in context's dtype (computed in fp32)."""
+    out = ht_pool_points(*ht_pool_inputs(depth, context, uvd, valid))
+    return out.to(context.dtype)

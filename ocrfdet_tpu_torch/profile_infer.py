@@ -1,14 +1,15 @@
 """Where the time of one eval request goes on the card.
 
-    python -m ocrfdet_tpu_torch.profile_infer [--requests 3]
+    python -m ocrfdet_tpu_torch.profile_infer [--requests 3] [--no-ocrf]
 
-Builds the flagship with_ocrf=False detector with seeded random weights,
-answers one warm-up request, then traces `--requests` requests with
-torch.profiler and prints one JSON line: the host-clock latency per
-request, the device's busy time per request (union of kernel
-intervals), its idle share of the traced window, device time per
-kernel group, and the ten kernels that take the most device time.
-Needs CUDA.
+Builds the flagship detector (`ocrfdet_config(batch_size=1)`, OcRF and
+HOA on; `--no-ocrf` for the with_ocrf=False slice) with seeded random
+weights, answers one warm-up request, then traces `--requests` requests
+through `entry.infer` with torch.profiler and prints one JSON line: the
+host-clock latency per request and its host NMS part, the device's busy
+time per request (union of kernel intervals), its idle share of the
+traced window, device time per kernel group, and the ten kernels that
+take the most device time. Needs CUDA.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ from . import entry
 GROUPS = (
     ("K1 cost_volume", ("cost_volume_kernel",)),
     ("K2 bev_pool", ("bev_pool_forward_kernel",)),
+    ("K3 ht_pool", ("ht_pool_forward_kernel",)),
+    ("K4 point_sample", ("point_sample_forward_kernel",)),
     ("conv / gemm", ("conv", "cudnn", "xmma", "gemm", "cutlass", "implicit",
                      "sm90", "wgrad", "dgrad", "fprop")),
     ("batch norm", ("batch_norm", "bn_fw")),
@@ -62,18 +65,23 @@ def busy_us(intervals) -> float:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--no-ocrf", action="store_true",
+                    help="the with_ocrf=False (LSS) slice")
     args = ap.parse_args(argv)
-    cfg = ocrfdet_config(batch_size=1, with_ocrf=False)
+    cfg = ocrfdet_config(batch_size=1, with_ocrf=not args.no_ocrf)
     model = entry.build_detector(cfg)
     batches = [entry.make_batch(cfg, seed=s) for s in range(args.requests)]
     entry.infer(model, batches[0])
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    nms_s = 0.0
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for b in batches:
-            entry.infer(model, b)
+            timings = {}
+            entry.infer(model, b, timings=timings)
+            nms_s += timings["nms"]
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_group = defaultdict(float)
@@ -91,8 +99,9 @@ def main(argv=None) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     out = dict(
         device=torch.cuda.get_device_name(0),
-        compute_dtype=cfg.compute_dtype, requests=n,
-        latency_ms=wall_us / n / 1e3,
+        with_ocrf=cfg.with_ocrf, compute_dtype=cfg.compute_dtype,
+        requests=n, latency_ms=wall_us / n / 1e3,
+        host_nms_ms=nms_s / n * 1e3,
         device_busy_ms=busy / n / 1e3,
         device_idle_share=(1.0 - busy / wall_us) if intervals else None,
         device_events=len(intervals),

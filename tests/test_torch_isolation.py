@@ -77,11 +77,17 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
+    """Training and spatial sharding are not ported; the OcRF branch
+    (with_ocrf=True) is, and builds."""
     import dataclasses
     from ocrfdet_tpu_torch.config import tiny_config
+    from ocrfdet_tpu_torch.data.synthetic import make_batch
     from ocrfdet_tpu_torch.models.detector import OcRFDet
-    with pytest.raises(NotImplementedError, match="with_ocrf"):
-        OcRFDet(tiny_config(with_ocrf=True))
+    model = OcRFDet(tiny_config(with_ocrf=True))
+    batch = {k: torch.from_numpy(v) for k, v in
+             make_batch(model.cfg, batch_size=1).items()}
+    with pytest.raises(NotImplementedError, match="training"):
+        model.train()(batch)
     cfg = tiny_config(with_ocrf=False)
     sharded = dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, space_axis=2, shard_cameras=True))

@@ -141,9 +141,12 @@ def test_with_prev_gates_the_previous_frame(stereo):
 
 
 def test_infer_on_cpu_runs_the_plain_versions(stereo):
-    """entry.infer on CPU tensors: the plain versions, no kernel launch."""
+    """entry.infer on CPU tensors: the plain versions, no kernel launch;
+    host NMS answers per sample."""
     before = (cost_volume.KERNEL.launches, bev_pool.KERNEL.launches)
-    preds, aux, decoded = entry.infer(stereo["model"], stereo["batch"])
+    preds, aux, decoded, dets = entry.infer(stereo["model"],
+                                            stereo["batch"])
+    assert len(dets) == 1 and dets[0]["boxes"].shape[1:] == (9,)
     assert (cost_volume.KERNEL.launches, bev_pool.KERNEL.launches) == before
     torch.testing.assert_close(preds[0]["heatmap"],
                                stereo["tout"][1][0][0]["heatmap"])
