@@ -8,7 +8,10 @@ Phases, each printing a line:
   2. build: compile the CUDA kernels from ocrfdet_tpu_torch/csrc/ (one
      nvcc per source, all at once) and the host NMS library;
   3. K1 (stereo cost volume), K2 (BEV pool), K3 (HT pool) and K4 (voxel
-     point sample) at flagship shapes, each kernel vs its plain version;
+     point sample) at flagship shapes, each kernel vs its plain version,
+     and the backward kernels of K2, K3 and K4 at the training step's
+     shapes (batch 2) on random cotangents, each vs its plain version's
+     autograd;
   4. the BEVDepth slice (`ocrfdet_config(batch_size=1,
      with_ocrf=False)`) through `entry.infer` on a window of 30 requests
      after warm-up (2 K1 + 2 K2 launches per request), then one request
@@ -19,8 +22,20 @@ Phases, each printing a line:
      of each of K1-K4 per request; latency median/p90, frames/s, host
      dispatch, device wait and host NMS times), then the fp32 request
      with the kernels and with their plain versions;
-  6. one JSON line describing every kernel (launches from the main
-     path's window), the card's name and power limit, and last
+  6. the main path of the training slice: the flagship trainer
+     (`ocrfdet_config(batch_size=2)`, bf16 towers, OcRF render branch)
+     through `entry.train_step`: 3 warm-up steps (the first records K5's
+     input streams), then a window of 10 timed steps with exactly 2
+     launches of K1 and of each forward of K2-K4, 1 of each of their
+     backwards and 1 of K5's forward and backward per step (the key
+     frame alone is differentiated); every loss finite, no step skipped;
+  7. K5 forward and backward on those recorded flagship streams vs its
+     plain version;
+  8. one fp32 step at batch 1 with the kernels (twice: their atomics set
+     the noise floor) and with the plain versions from the same weights
+     and batch: losses, per-module gradient norms, gradient difference;
+  9. one JSON line describing every kernel (launches from the training
+     window), the card's name and power limit, and last
      `{"ok": true, "device": {...}}`.
 Any failure raises and exits non-zero before the last line. It needs
 CUDA and the repository around it; imports no JAX.
@@ -76,6 +91,27 @@ def bound(nbytes: float, flops: float):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def close(got, want, rtol, atol_scale):
+    """(max |got - want|, scale, ok) with atol = atol_scale x scale."""
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=rtol, atol=atol_scale * scale))
+    return err, scale, ok
+
+
+def plain_grads(fn, args, diff, cot):
+    """Gradients of <fn(*args), cot> w.r.t. args[i] for i in diff, and a
+    closure that recomputes them (for timing)."""
+    args = [a.detach().clone().requires_grad_(i in diff)
+            if torch.is_tensor(a) else a for i, a in enumerate(args)]
+    out = fn(*args)
+    inputs = [args[i] for i in diff]
+
+    def again():
+        return torch.autograd.grad(out, inputs, cot, retain_graph=True)
+    return again(), again
 
 
 def check_k1(cfg, dev):
@@ -312,28 +348,454 @@ def check_k4(cfg, dev):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+
+def _training_pool_inputs(cfg, dev, B=2):
+    """K2's point streams of the key frame at the training batch B."""
+    from ocrfdet_tpu_torch.entry import make_batch
+    from ocrfdet_tpu_torch.geometry import frustum as FR
+    from ocrfdet_tpu_torch.ops import bev_pool as bp
+
+    batch = make_batch(cfg, seed=0, batch_size=B, device=dev)
+    grid = cfg.grid
+    H, W = cfg.data.input_size
+    frustum = torch.from_numpy(FR.make_frustum(grid.depth, (H, W),
+                                               cfg.vt.downsample)).to(dev)
+    coor = FR.frustum_to_ego(frustum, batch["rots"][:, 0],
+                             batch["trans"][:, 0], batch["intrins"][:, 0],
+                             batch["post_rots"][:, 0],
+                             batch["post_trans"][:, 0], batch["bda"])
+    X, Y = grid.bev_size
+    vox, valid = FR.voxel_indices(coor, (grid.x[0], grid.y[0], grid.z[0]),
+                                  (grid.x[2], grid.y[2], grid.z[2]),
+                                  (X, Y, 1))
+    D, fH, fW = frustum.shape[:3]
+    N, C = cfg.data.num_cams, cfg.vt.out_channels
+    g = torch.Generator(device=dev).manual_seed(11)
+    depth = torch.randn((B, N, D, fH, fW), generator=g,
+                        device=dev).softmax(2)
+    feat = torch.randn((B, N, fH, fW, C), generator=g, device=dev)
+    return bp.lss_points(depth, feat, vox, valid, (X, Y, 1))
+
+
+def check_k2_bwd(cfg, dev):
+    """K2's backward at the training step's shape (batch 2) on a random
+    cotangent, vs the plain version's autograd."""
+    from ocrfdet_tpu_torch.ops import bev_pool as bp
+
+    w, pix, cell, featp, cells = _training_pool_inputs(cfg, dev)
+    B, C = w.shape[0], featp.shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cot = torch.randn((B, cells, C), generator=gen, device=dev)
+    dw, dfeat = bp.bev_pool_points_backward(w, pix, cell, featp, cot, cells)
+    (pw, pfeat), again = plain_grads(bp.bev_pool_points_plain,
+                                     (w, pix, cell, featp, cells), (0, 3),
+                                     cot)
+    torch.cuda.synchronize()
+    # atomics reorder fp32 sums: rtol 1e-5, atol 1e-5 of each scale
+    (e1, s1, ok1), (e2, s2, ok2) = (close(dw, pw, 1e-5, 1e-5),
+                                    close(dfeat, pfeat, 1e-5, 1e-5))
+    ms = device_ms(lambda: bp.bev_pool_points_backward(
+        w, pix, cell, featp, cot, cells), reps=20)
+    plain_ms = device_ms(again, reps=5)
+    # yardstick: index_add_ of the precomputed weighted rows of g into
+    # dfeat plus one gather of the feature rows (the dw dot products are
+    # not in it)
+    keep = cell < cells
+    bidx = torch.arange(B, device=dev)[:, None].expand_as(cell)[keep]
+    rows = cot[bidx, cell[keep].long()] * w[keep][:, None]
+    pidx = (bidx * featp.shape[1] + pix[keep].long())
+    acc = torch.zeros((B * featp.shape[1], C), device=dev)
+    flat = featp.reshape(-1, C)
+    gidx = pidx[:, None].expand(-1, C)
+    library_ms = (device_ms(lambda: acc.index_add_(0, pidx, rows), reps=20)
+                  + device_ms(lambda: torch.gather(flat, 0, gidx), reps=20))
+    n_valid = int(keep.sum())
+    moved = nbytes(w, pix, cell, featp, cot, dw, dfeat)
+    bound_ms, bound_by = bound(moved, 4 * C * n_valid)
+    ok = ok1 and ok2
+    log(f"[k2-bwd] bev_pool backward g {tuple(cot.shape)} -> dw "
+        f"{tuple(dw.shape)}, dfeat {tuple(dfeat.shape)}: max_abs_err dw "
+        f"{e1:.3e} (max {s1:.3f}), dfeat {e2:.3e} (max {s2:.3f}) (tol rtol "
+        f"1e-5 atol 1e-5 x scale: {'ok' if ok else 'FAIL'}); kernel "
+        f"{ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, index_add_ + "
+        f"gather {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({moved / 1e6:.2f} MB, {n_valid} of {w.numel()} points in the "
+        f"grid)")
+    if not ok:
+        raise AssertionError("K2 backward kernel disagrees with its plain "
+                             "version")
+    return dict(max_abs_err=max(e1, e2), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def check_k3_bwd(cfg, dev, B=2):
+    """K3's backward at the training step's shape (batch 2: the key
+    frame's projection for both samples) on a random cotangent."""
+    from ocrfdet_tpu_torch.ops import ht_pool as htp
+
+    uvd, valid = flagship_projection(cfg, dev)
+    uvd, valid = uvd.expand(B, *uvd.shape[1:]), valid.expand(
+        B, *valid.shape[1:])
+    N, D, C = cfg.data.num_cams, cfg.grid.num_depth_bins, cfg.vt.out_channels
+    h = cfg.data.input_size[0] // cfg.vt.downsample
+    w = cfg.data.input_size[1] // cfg.vt.downsample
+    gen = torch.Generator(device=dev).manual_seed(13)
+    depth = torch.randn((B, N, h, w, D), generator=gen,
+                        device=dev).softmax(-1)
+    depth = torch.where(depth < cfg.vt.depth_threshold / D,
+                        torch.zeros_like(depth), depth)
+    ctx = torch.randn((B, N, h, w, C), generator=gen, device=dev)
+    args = htp.ht_pool_inputs(depth, ctx, uvd, valid)
+    cot = torch.randn((B, args[2].shape[3], C), generator=gen, device=dev)
+    ddep, dctx = htp.ht_pool_points_backward(*args, cot)
+    (pdep, pctx), again = plain_grads(htp.ht_pool_points_plain, args,
+                                      (0, 1), cot)
+    torch.cuda.synchronize()
+    (e1, s1, ok1), (e2, s2, ok2) = (close(ddep, pdep, 1e-5, 1e-5),
+                                    close(dctx, pctx, 1e-5, 1e-5))
+    ms = device_ms(lambda: htp.ht_pool_points_backward(*args, cot), reps=20)
+    plain_ms = device_ms(again, reps=5)
+    n_valid = int(args[4].sum())
+    moved = nbytes(*args, cot, ddep, dctx)
+    bound_ms, bound_by = bound(moved, n_valid * (4 * C + 2))
+    ok = ok1 and ok2
+    log(f"[k3-bwd] ht_pool backward dout {tuple(cot.shape)} -> ddep "
+        f"{tuple(ddep.shape)}, dctx {tuple(dctx.shape)}: max_abs_err ddep "
+        f"{e1:.3e} (max {s1:.3f}), dctx {e2:.3e} (max {s2:.3f}) (tol rtol "
+        f"1e-5 atol 1e-5 x scale: {'ok' if ok else 'FAIL'}); kernel "
+        f"{ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, no library "
+        f"call; bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} "
+        f"MB, {n_valid} of {args[4].numel()} points valid)")
+    if not ok:
+        raise AssertionError("K3 backward kernel disagrees with its plain "
+                             "version")
+    return dict(max_abs_err=max(e1, e2), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def check_k4_bwd(cfg, dev, B=2):
+    """K4's backward at the training step's shape: C = 4 maps ([alpha,
+    RGB]) of B x 6 cameras at full resolution, a random cotangent."""
+    import torch.nn.functional as F
+    from ocrfdet_tpu_torch.ops import point_sample as ps
+
+    uvd, _ = flagship_projection(cfg, dev)
+    N, C = cfg.data.num_cams, 4
+    H, W = cfg.vt.render_image_size
+    P = uvd.shape[2] * uvd.shape[3]
+    px = (uvd[0, ..., 0] * W).reshape(N, P).repeat(B, 1).contiguous()
+    py = (uvd[0, ..., 1] * H).reshape(N, P).repeat(B, 1).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    maps = torch.rand((B * N, H, W, C), generator=gen, device=dev)
+    cot = torch.randn((B * N, P, C), generator=gen, device=dev)
+    dmap = ps.point_sample_points_backward(px, py, cot, maps.shape)
+    (pmap,), again = plain_grads(ps.point_sample_points_plain,
+                                 (maps, px, py), (0,), cot)
+    torch.cuda.synchronize()
+    err, scale, ok = close(dmap, pmap, 1e-5, 1e-5)
+    ms = device_ms(lambda: ps.point_sample_points_backward(
+        px, py, cot, maps.shape), reps=20)
+    plain_ms = device_ms(again, reps=5)
+    # yardstick: F.grid_sample's backward to its input on the same points
+    m_nchw = maps.permute(0, 3, 1, 2).contiguous().requires_grad_()
+    grid = torch.stack([(2 * px + 1) / W - 1, (2 * py + 1) / H - 1],
+                       -1)[:, None]
+    out = F.grid_sample(m_nchw, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=False)
+    cot_l = cot.permute(0, 2, 1)[:, :, None].contiguous()
+    library_ms = device_ms(lambda: torch.autograd.grad(
+        out, m_nchw, cot_l, retain_graph=True), reps=20)
+    moved = nbytes(px, py, cot, dmap)
+    bound_ms, bound_by = bound(moved, px.numel() * (12 + 8 * C))
+    log(f"[k4-bwd] point_sample backward dout {tuple(cot.shape)} -> dmap "
+        f"{tuple(dmap.shape)}: max_abs_err {err:.3e} (max {scale:.3f}; tol "
+        f"rtol 1e-5 atol 1e-5 x scale: {'ok' if ok else 'FAIL'}); kernel "
+        f"{ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, grid_sample "
+        f"backward {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({moved / 1e6:.2f} MB)")
+    if not ok:
+        raise AssertionError("K4 backward kernel disagrees with its plain "
+                             "version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def _composite_work(attrs, T, n_tx):
+    """(live slots, (pixel, Gaussian) pairs that pass the keep test) of
+    K5's input: the work its kernels do on these streams."""
+    from ocrfdet_tpu_torch.ops.splat import composite as ct
+    px, py = ct._pixel_coords(attrs.shape[0], T, n_tx, 16, 16, attrs.device)
+    kept = 0
+    for k0 in range(0, attrs.shape[1], ct.CHUNK):
+        q = ct._chunk_quantities(attrs[:, k0:k0 + ct.CHUNK], px, py)
+        kept += int(q["keep"].sum())
+    return int((attrs[..., 7] > 0).sum()), kept
+
+
+def check_k5(attrs, T, n_tx):
+    """K5 forward and backward on the flagship streams recorded in the
+    training window (both samples' tiles, as the step launches them),
+    with random cotangents, vs the plain version."""
+    from ocrfdet_tpu_torch.ops.splat import composite as ct
+
+    dev = attrs.device
+    rgb, med, logt = ct.composite_forward(attrs, T, n_tx, 16)
+    prgb, pmed, plogt = ct.composite_forward_plain(attrs, T, n_tx, 16, 16)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    g_rgb = torch.randn(rgb.shape, generator=gen, device=dev)
+    g_med = torch.randn(med.shape, generator=gen, device=dev)
+    g_logt = torch.randn(logt.shape, generator=gen, device=dev)
+    d = ct.composite_backward(attrs, prgb, g_rgb, g_logt, g_med, T, n_tx, 16)
+    pd = ct.composite_backward_plain(attrs, prgb, g_rgb, g_logt, g_med, T,
+                                     n_tx, 16, 16)
+    torch.cuda.synchronize()
+    # the same chunks, other sums inside a chunk: rtol 1e-4, atol 1e-5 of
+    # the scale (the Pallas kernel's tolerance against the XLA
+    # compositor); the median may differ where T crosses 0.5 within
+    # rounding (at most 1 pixel in 10^4)
+    fwd = [close(rgb, prgb, 1e-4, 1e-5), close(logt, plogt, 1e-4, 1e-5)]
+    flips = int((med - pmed).abs().gt(1e-5 * pmed.abs()).sum())
+    fwd_ok = all(ok for *_, ok in fwd) and flips <= med.numel() // 10000
+    bwd = {k: close(d[..., i], pd[..., i], 1e-4, 1e-5)
+           for i, k in enumerate(ct.STREAMS)}
+    bwd_ok = all(ok for *_, ok in bwd.values())
+    live, kept = _composite_work(attrs, T, n_tx)
+    pairs = live * ct.TILE_PIXELS
+    fwd_ms = device_ms(lambda: ct.composite_forward(attrs, T, n_tx, 16),
+                       reps=20)
+    bwd_ms = device_ms(lambda: ct.composite_backward(
+        attrs, prgb, g_rgb, g_logt, g_med, T, n_tx, 16), reps=10)
+    fwd_plain = device_ms(lambda: ct.composite_forward_plain(
+        attrs, T, n_tx, 16, 16), reps=2)
+    bwd_plain = device_ms(lambda: ct.composite_backward_plain(
+        attrs, prgb, g_rgb, g_logt, g_med, T, n_tx, 16, 16), reps=2)
+    # operations: ~15 per evaluated (pixel, live Gaussian) pair (offsets,
+    # power, exp, alpha, keep), ~12 more per kept pair forward (log1p,
+    # exp, weights, RGB, crossing) and ~45 backward (the suffix trick and
+    # ten chain-rule terms, their warp sums)
+    fb = bound(nbytes(attrs, rgb, med, logt), 15 * pairs + 12 * kept)
+    bb = bound(nbytes(attrs, prgb, g_rgb, g_logt, g_med, d),
+               15 * pairs + 45 * kept)
+    worst = max(bwd, key=lambda k: bwd[k][0] / bwd[k][1])
+    log(f"[k5] composite_tiles attrs {tuple(attrs.shape)} ({live} live "
+        f"slots, {kept} kept pixel-Gaussian pairs): forward max_abs_err rgb "
+        f"{fwd[0][0]:.3e} (max {fwd[0][1]:.3f}), logt {fwd[1][0]:.3e} (max "
+        f"{fwd[1][1]:.3f}), median flips {flips} of {med.numel()} (tol rtol "
+        f"1e-4 atol 1e-5 x scale, flips <= 1e-4: "
+        f"{'ok' if fwd_ok else 'FAIL'}); backward worst {worst} "
+        f"{bwd[worst][0]:.3e} (max {bwd[worst][1]:.3e}) (tol rtol 1e-4 atol "
+        f"1e-5 x scale per stream: {'ok' if bwd_ok else 'FAIL'}); forward "
+        f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.3f} ms, bound "
+        f"{fb[0]:.4f} ms by {fb[1]}; backward kernel {bwd_ms:.4f} ms, plain "
+        f"{bwd_plain:.3f} ms, bound {bb[0]:.4f} ms by {bb[1]}; no library "
+        f"call")
+    for k, (e, s, ok) in bwd.items():
+        log(f"[k5]   d{k}: max_abs_err {e:.3e}, max {s:.3e}"
+            f"{'' if ok else ' FAIL'}")
+    if not (fwd_ok and bwd_ok):
+        raise AssertionError("K5 kernel disagrees with its plain version")
+    fwd_err = max(fwd[0][0], fwd[1][0])
+    return (dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain,
+                 bound_ms=fb[0], bound_by=fb[1], library_ms=None),
+            dict(max_abs_err=max(e for e, _, _ in bwd.values()), ms=bwd_ms,
+                 plain_ms=bwd_plain, bound_ms=bb[0], bound_by=bb[1],
+                 library_ms=None))
+
+
+def check_training(dev, all_kernels, per_step, n_steps=10, n_warmup=3):
+    """The main path: flagship training steps at batch 2 through
+    `entry.train_step`. Every kernel's count is set to 0 just before the
+    timed window and read just after: each must have launched exactly
+    per_step[kernel] times per step. Returns (launches, the K5 input
+    streams recorded in the first warm-up step and their tiling)."""
+    from ocrfdet_tpu_torch import bench_train, entry
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.ops.splat import composite as ct
+
+    cfg = ocrfdet_config(batch_size=2)
+    t0 = time.perf_counter()
+    state = entry.build_trainer(cfg, dev, seed=0)
+    batches = [entry.make_batch(cfg, seed=s, batch_size=2, device=dev,
+                                with_targets=True) for s in range(2)]
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"[train] built the flagship trainer ({n_params / 1e6:.2f} M params, "
+        f"{cfg.compute_dtype} towers, remat={cfg.backbone.remat}) and 2 "
+        f"training batches of 2 in {time.perf_counter() - t0:.1f} s")
+    recorded = {}
+    original = ct.composite_tiles
+
+    def record(attrs, *dims):
+        recorded.setdefault("attrs", attrs.detach().clone())
+        recorded.setdefault("dims", dims)
+        return original(attrs, *dims)
+    t0 = time.perf_counter()
+    with mock.patch.object(ct, "composite_tiles", record):
+        first = entry.train_step(state, batches[0])
+    for i in range(1, n_warmup):
+        entry.train_step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    log(f"[train] {n_warmup} warm-up steps in {time.perf_counter() - t0:.1f}"
+        f" s (first loss_total {first['loss_total']:.4f})")
+    for k in all_kernels:
+        k.launches = 0
+    r = bench_train.window(state, batches, n_steps)
+    launches = {k.name: k.launches for k in all_kernels}
+    for k in all_kernels:
+        want = per_step.get(k.name, 0) * n_steps
+        if launches[k.name] != want:
+            raise AssertionError(f"{k.name}: {launches[k.name]} launches over "
+                                 f"{n_steps} training steps, expected {want}")
+    m = r["metrics"]
+    bad = [k for k, v in m.items() if not np.isfinite(v)]
+    if bad or r["skipped"] or state.step != n_warmup + n_steps:
+        raise AssertionError(f"training window: non-finite {bad}, "
+                             f"{r['skipped']} skipped, step {state.step}")
+    log(f"[train] {n_steps} steps after {n_warmup} warm-up (batch 2, "
+        f"{cfg.total_frames} frames x {cfg.data.num_cams} cams at "
+        f"{cfg.data.input_size}, {cfg.compute_dtype}) in a "
+        f"{r['wall_s']:.3f} s window: {r['frames_per_s']:.3f} frames/s; step "
+        f"ms median {r['step_ms_median']:.3f} p90 {r['step_ms_p90']:.3f}; "
+        f"peak device memory {r['peak_mem_gb']:.2f} GB; skipped_nonfinite "
+        f"{r['skipped']:.0f}; launches {launches}")
+    log(f"[train] last step's losses: " + json.dumps(
+        {k: round(v, 6) for k, v in m.items()}))
+    return launches, recorded
+
+
+def _module_of(name: str) -> str:
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "img_view_transformer" \
+        else parts[0]
+
+
+def check_fp32_step(dev, all_kernels):
+    """One fp32 training step's losses and gradients at batch 1, from the
+    same weights and batch (and dropout masks): with the kernels twice
+    (their atomics add in a varying order, which sets the noise floor)
+    and with the plain versions once; the plain run launches no
+    kernel."""
+    from ocrfdet_tpu_torch import entry
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.models.detector import OcRFDet
+    from ocrfdet_tpu_torch.train.trainstep import compute_losses, total_loss
+    from ocrfdet_tpu_torch.utils.weights import init_weights
+
+    cfg = ocrfdet_config(batch_size=1, compute_dtype="float32")
+    sd = init_weights(OcRFDet(cfg, render_heads=True), seed=0).state_dict()
+    batch = entry.make_batch(cfg, seed=0, batch_size=1, device=dev,
+                             with_targets=True)
+
+    def step(plain: bool, perturb: float = 0.0):
+        model = OcRFDet(cfg, render_heads=True)
+        model.load_state_dict(sd)
+        model = model.to(dev).train()
+        if perturb:
+            gen = torch.Generator(device=dev).manual_seed(6)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1.0 + perturb * torch.randn(
+                        p.shape, generator=gen, device=dev))
+        model.set_dropout_generator(
+            torch.Generator(device=dev).manual_seed(5))
+        before = [k.launches for k in all_kernels]
+        with plain_versions() if plain else contextlib.nullcontext():
+            preds, aux = model(batch)
+            losses = compute_losses(cfg, preds, aux, batch)
+            total_loss(losses).backward()
+        torch.cuda.synchronize()
+        launched = sum(k.launches for k in all_kernels) - sum(before)
+        grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+        return ({k: float(v.detach()) for k, v in losses.items()}, grads,
+                launched)
+
+    k_losses, k_grads, k_n = step(False)
+    k2_losses, k2_grads, _ = step(False)
+    p_losses, p_grads, p_n = step(True)
+    # the model's own conditioning: the plain step with every weight
+    # moved by a relative 1e-7 (about one fp32 rounding)
+    q_losses, q_grads, _ = step(True, perturb=1e-7)
+    if k_n == 0 or p_n != 0:
+        raise AssertionError(f"fp32 step: {k_n} kernel launches with the "
+                             f"kernels, {p_n} with the plain versions")
+
+    def rel_err(a, b):
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in b}
+    errs, errs_kk = rel_err(k_losses, p_losses), rel_err(k_losses, k2_losses)
+    errs_q = rel_err(q_losses, p_losses)
+    loss_err, loss_floor = max(errs.values()), max(errs_q.values())
+    log("[fp32-step] losses, rel err kernels vs plain (kernels vs kernels; "
+        "plain with weights moved by 1e-7 vs plain): " + ", ".join(
+            f"{k} {errs[k]:.2e} ({errs_kk[k]:.2e}; {errs_q[k]:.2e})"
+            for k in sorted(errs, key=errs.get, reverse=True)[:8]))
+    names = sorted(p_grads)
+
+    def flat(g):
+        return torch.cat([g[n].reshape(-1) for n in names])
+    P, K, K2, Q = (flat(p_grads), flat(k_grads), flat(k2_grads),
+                   flat(q_grads))
+    rel = float((K - P).norm() / P.norm())
+    floor = max(float((K - K2).norm() / P.norm()),
+                float((Q - P).norm() / P.norm()))
+    max_abs = float((K - P).abs().max())
+    mods = {}
+    for n in names:
+        d = mods.setdefault(_module_of(n), [0.0, 0.0, 0.0, 0.0])
+        d[0] += float(p_grads[n].norm()) ** 2
+        d[1] += float((k_grads[n] - p_grads[n]).norm()) ** 2
+        d[2] += float((k_grads[n] - k2_grads[n]).norm()) ** 2
+        d[3] += float((q_grads[n] - p_grads[n]).norm()) ** 2
+    # per module: (rel L2 kernels vs plain, floor), relative to the
+    # module's gradient norm
+    mod_rel = {m: (v[1] ** 0.5 / max(v[0] ** 0.5, 1e-12),
+                   max(v[2], v[3]) ** 0.5 / max(v[0] ** 0.5, 1e-12))
+               for m, v in mods.items()}
+    worst = max(mod_rel, key=lambda m: mod_rel[m][0])
+    log(f"[fp32-step] batch 1, fp32, kernels ({k_n} launches) vs plain "
+        f"versions (0 launches): losses max rel err {loss_err:.3e} (the "
+        f"1e-7 weight move: {loss_floor:.3e}); gradient rel L2 {rel:.3e} "
+        f"(floor: the larger of kernels vs kernels and the 1e-7 weight "
+        f"move, {floor:.3e}), max abs diff {max_abs:.3e} (max |grad| "
+        f"{float(P.abs().max()):.3e}); per module worst {worst} rel L2 "
+        f"{mod_rel[worst][0]:.3e} (floor {mod_rel[worst][1]:.3e})")
+    log("[fp32-step] per-module gradient rel L2 kernels vs plain (floor): "
+        + ", ".join(f"{m} {a:.2e} ({b:.2e})" for m, (a, b) in
+                    mod_rel.items()))
+    # tolerance: the kernels differ from the plain versions only in the
+    # order of fp32 sums (K5: inside a chunk), i.e. by about one
+    # rounding, but this randomly initialised train-mode model amplifies
+    # a rounding (BatchNorm over batch statistics, ties of the max-based
+    # gates): its floor is what a relative 1e-7 move of the weights does
+    # to the plain step. The losses must agree to 1e-4 or 3x that floor;
+    # the gradient (overall and per module) to 3x the larger of that
+    # floor and two kernel runs' difference (their atomics), plus 1e-3
+    # of its norm
+    bad = [m for m, (a, b) in mod_rel.items() if a > 3 * b + 1e-3]
+    if bad or loss_err > max(1e-4, 3 * loss_floor) or rel > 3 * floor + 1e-3:
+        raise AssertionError(f"fp32 step: kernels disagree with the plain "
+                             f"versions beyond the stated tolerance "
+                             f"(modules {bad})")
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel wrappers to their plain versions (for a
-    reference run on the card)."""
+    reference run on the card): forwards, and the backwards through the
+    plain forwards' autograd and K5's plain autograd Function."""
     from ocrfdet_tpu_torch.ops import bev_pool as bp
     from ocrfdet_tpu_torch.ops import cost_volume as cvm
     from ocrfdet_tpu_torch.ops import ht_pool as htp
     from ocrfdet_tpu_torch.ops import point_sample as ps
+    from ocrfdet_tpu_torch.ops.splat import composite as ct
     with mock.patch.object(cvm, "cost_volume", cvm.cost_volume_plain), \
             mock.patch.object(bp, "bev_pool_points",
                               bp.bev_pool_points_plain), \
             mock.patch.object(htp, "ht_pool_points",
                               htp.ht_pool_points_plain), \
             mock.patch.object(ps, "point_sample_points",
-                              ps.point_sample_points_plain):
+                              ps.point_sample_points_plain), \
+            mock.patch.object(ct, "composite_tiles",
+                              ct.composite_tiles_plain):
         yield
-
-
-def percentile(xs, q: float) -> float:
-    """The q-th percentile of xs (nearest rank)."""
-    xs = sorted(xs)
-    return xs[min(len(xs) - 1, max(0, round(q / 100 * len(xs)) - 1))]
 
 
 def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
@@ -350,6 +812,7 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     thread's CPU time (the thread CPU clock may tick only every few ms,
     too coarse for one request)."""
     from ocrfdet_tpu_torch import entry
+    from ocrfdet_tpu_torch.bench_train import percentile
     from ocrfdet_tpu_torch.models.detector import OcRFDet
 
     t0 = time.perf_counter()
@@ -490,6 +953,7 @@ def main() -> int:
     from ocrfdet_tpu_torch.ops import ht_pool as htp
     from ocrfdet_tpu_torch.ops import nms
     from ocrfdet_tpu_torch.ops import point_sample as ps
+    from ocrfdet_tpu_torch.ops.splat import composite as ct
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -505,24 +969,44 @@ def main() -> int:
         f"cuDNN and matmul (fp32 comparisons)")
 
     t = time.perf_counter()
-    kernel_list = [cvm.KERNEL, bp.KERNEL, htp.KERNEL, ps.KERNEL]
+    kernel_list = [cvm.KERNEL, bp.KERNEL, bp.BWD_KERNEL, htp.KERNEL,
+                   htp.BWD_KERNEL, ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL,
+                   ct.BWD_KERNEL]
     kernels.build(kernel_list)
     nms.native_library()
-    log(f"[build] {', '.join(k.source for k in kernel_list)} (nvcc) and "
-        f"nms.cpp (c++) -> {kernels.BUILD_DIR.name}/ in "
-        f"{time.perf_counter() - t:.1f} s")
+    sources = sorted({k.source for k in kernel_list})
+    log(f"[build] {', '.join(sources)} (nvcc) and nms.cpp (c++) -> "
+        f"{kernels.BUILD_DIR.name}/ in {time.perf_counter() - t:.1f} s")
+    eval_kernels = [cvm.KERNEL, bp.KERNEL, htp.KERNEL, ps.KERNEL]
 
     cfg = ocrfdet_config(batch_size=1)
     lss_cfg = ocrfdet_config(batch_size=1, with_ocrf=False)
     stats = {"cost_volume": check_k1(cfg, dev),
              "bev_pool": check_k2(cfg, dev),
              "ht_pool": check_k3(cfg, dev),
-             "point_sample": check_k4(cfg, dev)}
-    check_slice(lss_cfg, dev, "lss", kernel_list[:2], kernel_list,
+             "point_sample": check_k4(cfg, dev),
+             "bev_pool_bwd": check_k2_bwd(cfg, dev),
+             "ht_pool_bwd": check_k3_bwd(cfg, dev),
+             "point_sample_bwd": check_k4_bwd(cfg, dev)}
+    torch.cuda.empty_cache()
+    check_slice(lss_cfg, dev, "lss", eval_kernels[:2], kernel_list,
                 n_requests=30)
     torch.cuda.empty_cache()
-    launches = check_slice(cfg, dev, "ocrf", kernel_list, kernel_list,
-                           n_requests=100)
+    check_slice(cfg, dev, "ocrf", eval_kernels, kernel_list, n_requests=100)
+    torch.cuda.empty_cache()
+    # per training step: K1 and each forward of K2-K4 once per temporal
+    # frame, their backwards and K5 once (the key frame)
+    per_step = {"cost_volume": 2, "bev_pool": 2, "ht_pool": 2,
+                "point_sample": 2, "bev_pool_bwd": 1, "ht_pool_bwd": 1,
+                "point_sample_bwd": 1, "composite_tiles": 1,
+                "composite_tiles_bwd": 1}
+    launches, recorded = check_training(dev, kernel_list, per_step)
+    torch.cuda.empty_cache()
+    stats["composite_tiles"], stats["composite_tiles_bwd"] = check_k5(
+        recorded["attrs"], recorded["dims"][0], recorded["dims"][1])
+    del recorded
+    torch.cuda.empty_cache()
+    check_fp32_step(dev, kernel_list)
 
     rows = []
     for k in kernel_list:

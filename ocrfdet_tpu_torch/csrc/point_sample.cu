@@ -1,9 +1,9 @@
-// Bilinear point sampling of per-camera maps, forward only (Hopper,
-// sm_90a).
+// Bilinear point sampling of per-camera maps, forward and backward
+// (Hopper, sm_90a).
 //
 // Replaces: ocrfdet_tpu/ops/point_sample.py::_point_sample_mm, the
-// Pallas forward kernel _fwd_kernel (the backward, _bwd_kernel, is not
-// ported yet).
+// Pallas kernels _fwd_kernel (forward) and _bwd_kernel (backward, through
+// _ps_bwd).
 //
 //   out[bn, p, c] = sum over the taps (u, v) in {x0, x0+1} x {y0, y0+1}
 //                   of relu(1-|px-u|) relu(1-|py-v|) map[bn, v, u, c],
@@ -24,6 +24,18 @@
 // order with separately rounded operations (no FMA contraction), and the
 // in-image tests are done in float, so far-off points cannot overflow an
 // integer index.
+//
+// Backward: dmap[bn, v, u, c] += tent(px-u) tent(py-v) dout[bn, p, c] over
+// the 4 taps of every point; px and py get no gradient (as the Pallas
+// VJP). One thread per point recomputes the forward's tap weights and
+// adds the weighted dout into the taps with fp32 atomics (neighbouring
+// points share taps); a tap of weight 0 (outside the image) adds
+// nothing. Every channel of the map gets its gradient. At flagship
+// training shapes (12 maps of 256 x 704 x 4, 212,992 points each) it
+// moves ~64 MB (px, py, dout, dmap), ~19 us at 3.35 TB/s, with up to
+// 41 M atomic adds into dmap: the atomics bound it. Their order, and so
+// the last bits of dmap, vary from run to run. dmap must be zeroed by the
+// caller.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,6 +96,47 @@ point_sample_forward_kernel(const float* __restrict__ maps,
   }
 }
 
+// dout [BN,P,C]; dmap [BN,H,W,C] (zeroed).
+__global__ void __launch_bounds__(kThreads)
+point_sample_backward_kernel(const float* __restrict__ px,
+                             const float* __restrict__ py,
+                             const float* __restrict__ dout,
+                             float* __restrict__ dmap, int H, int W, int C,
+                             int64_t P) {
+  const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (p >= P) return;
+  const int bn = blockIdx.y;
+  const int64_t i = bn * P + p;
+  const float x = px[i], y = py[i];
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float tx = __fsub_rn(x, x0), ty = __fsub_rn(y, y0);
+  float wx0, wx1, wy0, wy1;
+  axis_weights(x0, tx, W, &wx0, &wx1);
+  axis_weights(y0, ty, H, &wy0, &wy1);
+  const int xa = (int)fminf(fmaxf(x0, 0.f), (float)(W - 1));
+  const int xb = (int)fminf(fmaxf(__fadd_rn(x0, 1.f), 0.f), (float)(W - 1));
+  const int ya = (int)fminf(fmaxf(y0, 0.f), (float)(H - 1));
+  const int yb = (int)fminf(fmaxf(__fadd_rn(y0, 1.f), 0.f), (float)(H - 1));
+  float* m = dmap + (int64_t)bn * H * W * C;
+  float* taps[4] = {m + ((int64_t)ya * W + xa) * C,
+                    m + ((int64_t)ya * W + xb) * C,
+                    m + ((int64_t)yb * W + xa) * C,
+                    m + ((int64_t)yb * W + xb) * C};
+  const float wts[4] = {__fmul_rn(wy0, wx0), __fmul_rn(wy0, wx1),
+                        __fmul_rn(wy1, wx0), __fmul_rn(wy1, wx1)};
+  const float* g = dout + i * C;
+  float gv[kMaxC];
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c) gv[c] = c < C ? g[c] : 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (wts[k] == 0.f) continue;
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c)
+      if (c < C) atomicAdd(taps[k] + c, wts[k] * gv[c]);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -99,6 +152,21 @@ int point_sample_forward(const float* maps, const float* px, const float* py,
     point_sample_forward_kernel<<<blocks, kThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(
         maps, px, py, out, H, W, C, P);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Returns cudaGetLastError() after the launch (0 on success).
+int point_sample_backward(const float* px, const float* py, const float* dout,
+                          float* dmap, int BN, int H, int W, int C, int64_t P,
+                          void* stream) {
+  if (C <= 0 || C > kMaxC || BN > 65535) return (int)cudaErrorInvalidValue;
+  if (BN > 0 && P > 0) {
+    const dim3 blocks((unsigned)((P + kThreads - 1) / kThreads),
+                      (unsigned)BN);
+    point_sample_backward_kernel<<<blocks, kThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        px, py, dout, dmap, H, W, C, P);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,13 @@
-"""Entry points of the port (counterpart of `__graft_entry__.entry()`).
+"""Entry points of the port (counterpart of `__graft_entry__.entry()`
+and of the JAX package's single-device train step).
 
     model = build_detector(cfg)                  # on "cuda" by default
     batch = make_batch(cfg, seed=0)
     preds, aux, decoded, detections = infer(model, batch)   # one request
+
+    state = build_trainer(cfg)                   # train mode, AdamW, EMA
+    batch = make_batch(cfg, seed=0, batch_size=2, with_targets=True)
+    metrics = train_step(state, batch)           # losses, skipped_nonfinite
 
 The default config is the flagship `ocrfdet_config(batch_size=1)`, with
 the OcRF branch and HOA on; `with_ocrf=False` selects the BEVDepth-style
@@ -24,6 +29,7 @@ from .core.coder import decode_all_tasks
 from .data import synthetic
 from .models.detector import OcRFDet
 from .ops.nms import multi_task_nms
+from .train.step import TrainState, train_step  # noqa: F401 (entry point)
 from .utils.weights import init_weights
 
 
@@ -45,12 +51,29 @@ def build_detector(cfg: Optional[OcRFDetConfig] = None, device=None,
     return model.eval().to(device)
 
 
-def make_batch(cfg: OcRFDetConfig, seed: int = 0, batch_size: int = 1,
-               device=None) -> Dict[str, torch.Tensor]:
-    """A synthetic eval request as tensors on `device`."""
+def build_trainer(cfg: Optional[OcRFDetConfig] = None, device=None,
+                  seed: int = 0, steps_per_epoch: int = 100) -> TrainState:
+    """The training state of `cfg` (default the flagship
+    `ocrfdet_config()`, batch from the batches given to `train_step`):
+    the model with its render heads and seeded random weights in train
+    mode on `device`, AdamW state, EMA, step 0."""
     device = resolve_device(device)
-    batch = synthetic.make_batch(cfg, batch_size=batch_size, seed=seed)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    cfg = cfg or ocrfdet_config()
+    model = init_weights(OcRFDet(cfg, render_heads=True), seed).to(device)
+    return TrainState(cfg, model, steps_per_epoch=steps_per_epoch, seed=seed)
+
+
+def make_batch(cfg: OcRFDetConfig, seed: int = 0, batch_size: int = 1,
+               device=None, with_targets: bool = False) -> Dict:
+    """A synthetic request as tensors on `device`; with `with_targets`
+    a training batch (the per-task targets as lists of tensors)."""
+    device = resolve_device(device)
+    batch = synthetic.make_batch(cfg, batch_size=batch_size, seed=seed,
+                                 with_targets=with_targets)
+
+    def tensor(v):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return {k: [tensor(t) for t in v] if isinstance(v, list) else tensor(v)
             for k, v in batch.items()}
 
 

@@ -6,7 +6,9 @@ Each source under `csrc/` is compiled at first use by `nvcc` for
 `ctypes`. The library's file name carries a hash of its source and of
 the compiler flags, so an edited source is rebuilt and a built one is
 reused. `build()` compiles several sources at once, one `nvcc` process
-each.
+each. A source may hold several entry points (a forward and a
+backward); each is its own `Kernel`, with its own launch count, and the
+source is compiled once for all of them.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.launch` raises if that is not 0 and
@@ -92,7 +94,8 @@ def build(kernels: Iterable[Kernel]) -> None:
     """Compile every kernel whose library is missing, all `nvcc`
     processes at once, then load them all."""
     kernels = [k for k in kernels if k._lib is None]
-    todo = [k for k in kernels if not k.library_path().exists()]
+    todo = list({k.library_path(): k for k in kernels
+                 if not k.library_path().exists()}.values())
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()

@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .norm import BatchNorm1d, BatchNorm2d
 from .resnet import BasicBlock, ConvBN
 
 
@@ -41,7 +42,9 @@ class SELayer(nn.Module):
 
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: dilations (1, 6, 12, 18) + a
-    global pooling branch, concat -> 1x1. Dropout only in training."""
+    global pooling branch, concat -> 1x1. In train mode, dropout (flax's
+    semantics: keep with probability 1 - p, scaled by 1 / (1 - p)) with
+    masks drawn from `generator`."""
 
     def __init__(self, in_ch: int, mid_channels: int, out_channels: int,
                  dropout: float = 0.5):
@@ -51,10 +54,12 @@ class ASPP(nn.Module):
         self.ConvBN_2 = ConvBN(in_ch, mid_channels, 3, dilation=12)
         self.ConvBN_3 = ConvBN(in_ch, mid_channels, 3, dilation=18)
         self.Conv_0 = nn.Conv2d(in_ch, mid_channels, 1, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(mid_channels, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm2d(mid_channels, eps=1e-5)
         self.Conv_1 = nn.Conv2d(mid_channels * 5, out_channels, 1, bias=False)
-        self.BatchNorm_1 = nn.BatchNorm2d(out_channels, eps=1e-5)
-        self.dropout = nn.Dropout(dropout)
+        self.BatchNorm_1 = BatchNorm2d(out_channels, eps=1e-5)
+        self.dropout = dropout
+        # the dropout masks' generator (train mode); None: torch's default
+        self.generator = None
 
     def forward(self, x):
         branches = [self.ConvBN_0(x), self.ConvBN_1(x), self.ConvBN_2(x),
@@ -63,7 +68,12 @@ class ASPP(nn.Module):
             x.mean(dim=(2, 3), keepdim=True))))
         branches.append(gp.expand(-1, -1, x.shape[2], x.shape[3]))
         y = F.relu(self.BatchNorm_1(self.Conv_1(torch.cat(branches, dim=1))))
-        return self.dropout(y)
+        if self.training and self.dropout > 0:
+            keep = 1.0 - self.dropout
+            mask = torch.rand(y.shape, generator=self.generator,
+                              device=y.device) < keep
+            y = torch.where(mask, y / keep, torch.zeros_like(y))
+        return y
 
 
 class DepthNet(nn.Module):
@@ -77,7 +87,7 @@ class DepthNet(nn.Module):
         self.D = depth_channels - 2
         ratio = 16 // cv_downsample
         self.cv_ratio = ratio
-        self.mlp_bn = nn.BatchNorm1d(27, eps=1e-5)
+        self.mlp_bn = BatchNorm1d(27, eps=1e-5)
         self.reduce_conv = ConvBN(in_channels, mid_channels, 3)
         self.context_mlp = Mlp(27, mid_channels, mid_channels)
         self.context_se = SELayer(mid_channels)
@@ -90,7 +100,7 @@ class DepthNet(nn.Module):
             for k, s in enumerate(strides):
                 setattr(self, f"cv_conv{k}",
                         nn.Conv2d(self.D, self.D, 3, s, padding=1))
-                setattr(self, f"cv_bn{k}", nn.BatchNorm2d(self.D, eps=1e-5))
+                setattr(self, f"cv_bn{k}", BatchNorm2d(self.D, eps=1e-5))
             depth_in += self.D
         self.depth_block0 = BasicBlock(depth_in, mid_channels, 1)
         self.depth_block1 = BasicBlock(mid_channels, mid_channels, 1)

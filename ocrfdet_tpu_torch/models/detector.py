@@ -1,4 +1,4 @@
-"""OcRFDet detector assembly, eval forward (counterpart of
+"""OcRFDet detector assembly (counterpart of
 ocrfdet_tpu/models/detector.py).
 
 ResNet backbone -> CustomFPN (per camera) -> view transformer with the
@@ -17,10 +17,19 @@ Batch layout (channel-last, as the JAX package):
 
 Frames run oldest first; the stereo reference frame goes through the
 stem only; the cost volume of frame f is built from (stem_f, stem_{f+1})
-with k2s_sensor[:, f] and frame f's cameras; non-key BEV features are
-detached and multiplied by `with_prev`. The conv towers run in
-`cfg.compute_dtype` under autocast; geometry, the cost volume, the depth
-softmax, the splat, the HT pool and the point sampling run in fp32.
+with k2s_sensor[:, f] and frame f's cameras, and is detached; non-key BEV
+features are detached and multiplied by `with_prev`. The conv towers run
+in `cfg.compute_dtype` under autocast; geometry, the cost volume, the
+depth softmax, the splat, the HT pool and the point sampling run in
+fp32.
+
+In train mode (`model.train()`) BatchNorm normalises with batch
+statistics and moves its running statistics (flax's update, models/
+norm.py) in every frame, the ASPP applies dropout, the image backbone's
+blocks are checkpointed when `cfg.backbone.remat`, every frame but the
+key frame runs under `torch.no_grad()` (the JAX package's
+stop_gradient), and the key frame adds the OcRF render branch's outputs
+to aux; a training model is built with `render_heads=True`.
 """
 from __future__ import annotations
 
@@ -43,6 +52,9 @@ from .view_transformer import (CameraParams, LSSViewTransformer,
 
 def check_supported(cfg: OcRFDetConfig) -> None:
     """Raise on the parts of the config this port does not run yet."""
+    if cfg.vggt_teacher is not None:
+        raise NotImplementedError(
+            "the VGGT teacher (GeoEnhDet) is not ported yet")
     p = cfg.parallel
     if p.space_axis > 1 and (p.shard_cameras or p.shard_vt or p.shard_bev
                              or p.shard_render):
@@ -51,20 +63,27 @@ def check_supported(cfg: OcRFDetConfig) -> None:
 
 
 class OcRFDet(nn.Module):
-    def __init__(self, cfg: OcRFDetConfig):
+    def __init__(self, cfg: OcRFDetConfig, render_heads: bool = False):
+        """`render_heads`: build the OcRF render branch's heads, which
+        only training runs."""
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
         self.img_backbone = ResNet(cfg.backbone.depth,
-                                   cfg.backbone.out_indices)
+                                   cfg.backbone.out_indices,
+                                   remat=cfg.backbone.remat)
         ch = self.img_backbone.stage_channels
         self.img_neck = CustomFPN(
             [ch[i] for i in cfg.backbone.out_indices[1:]],
             out_channels=cfg.vt.in_channels)
-        vt = OcRFViewTransformer if cfg.with_ocrf else LSSViewTransformer
-        self.img_view_transformer = vt(cfg.grid, cfg.vt, cfg.data.input_size)
+        if cfg.with_ocrf:
+            self.img_view_transformer = OcRFViewTransformer(
+                cfg.grid, cfg.vt, cfg.data.input_size, render_heads)
+        else:
+            self.img_view_transformer = LSSViewTransformer(
+                cfg.grid, cfg.vt, cfg.data.input_size)
         c = cfg.vt.out_channels
         self.pre_process = CustomResNet(c, (c,), num_layer=(2,), stride=(1,),
                                         backbone_output_ids=(0,))
@@ -122,14 +141,45 @@ class OcRFDet(nn.Module):
         B, N = cv.shape[:2]
         return cv.reshape(B * N, *cv.shape[2:]).to(self.dtype)
 
+    def set_dropout_generator(self, generator) -> None:
+        """The generator of the ASPP's dropout masks in train mode."""
+        aspp = self.lss.depth_net.aspp
+        if aspp is not None:
+            aspp.generator = generator
+
+    def _frame(self, batch, f, is_key, stem_prev, key_cams, towers):
+        """One temporal frame: (bev [B,C,Y,X] after the pre-process, aux,
+        stem)."""
+        cfg = self.cfg
+        with towers():
+            fpn, stem = self.image_encoder(batch["imgs"][:, f])
+        cams = self._frame_cams(batch, f)
+        mlp_input = camera_mlp_input(
+            key_cams.rots, key_cams.trans, cams.intrins, cams.post_rots,
+            cams.post_trans, batch["bda"]).float()
+        cv = None
+        if cfg.use_stereo and stem_prev is not None:
+            cv = self._cost_volume(stem.detach(), stem_prev, batch, cams, f)
+        if cfg.with_ocrf:
+            bev, aux = self.img_view_transformer(
+                fpn, cams, mlp_input, cv, towers, batch=batch, is_key=is_key)
+        else:
+            with towers():
+                depth, semantic, context = self.img_view_transformer(
+                    fpn, mlp_input, cost_volume=cv)
+            bev = self.img_view_transformer.splat(depth, context, cams) \
+                .permute(0, 3, 1, 2)
+            aux = dict(depth=depth, semantic=semantic)
+        with towers():
+            bev = self.pre_process(bev)[0]
+        return bev, aux, stem
+
     def forward(self, batch: Dict[str, torch.Tensor]):
         """Returns (preds, aux): preds is one dict per task of
         channel-last [B,H,W,ch] maps; aux holds the key frame's depth
         [B,N,h,w,D] and semantic [B,N,h,w,2] and, with `with_ocrf`, its
-        bev_mask_logit and opacity_bev_logit [B,Y,X,1]."""
-        if self.training:
-            raise NotImplementedError(
-                "training is not ported yet: call .eval() first")
+        bev_mask_logit and opacity_bev_logit [B,Y,X,1] and, in train
+        mode, the render branch's outputs."""
         cfg = self.cfg
         imgs = batch["imgs"]
         F_total = imgs.shape[1]
@@ -142,33 +192,17 @@ class OcRFDet(nn.Module):
         key_aux: Dict[str, torch.Tensor] = {}
         for f in range(F_total - 1, -1, -1):
             is_key = f == 0
-            if cfg.use_stereo and f == F_total - 1:
-                with towers():
-                    _, stem_prev = self.image_encoder(imgs[:, f],
-                                                      stem_only=True)
-                stem_prev = stem_prev.detach()
-                continue
-            with towers():
-                fpn, stem = self.image_encoder(imgs[:, f])
-            cams = self._frame_cams(batch, f)
-            mlp_input = camera_mlp_input(
-                key_cams.rots, key_cams.trans, cams.intrins, cams.post_rots,
-                cams.post_trans, batch["bda"]).float()
-            cv = None
-            if cfg.use_stereo and stem_prev is not None:
-                cv = self._cost_volume(stem, stem_prev, batch, cams, f)
-            if cfg.with_ocrf:
-                bev, aux = self.img_view_transformer(fpn, cams, mlp_input,
-                                                     cv, towers)
-            else:
-                with towers():
-                    depth, semantic, context = self.img_view_transformer(
-                        fpn, mlp_input, cost_volume=cv)
-                bev = self.img_view_transformer.splat(depth, context, cams) \
-                    .permute(0, 3, 1, 2)
-                aux = dict(depth=depth, semantic=semantic)
-            with towers():
-                bev = self.pre_process(bev)[0]
+            # only the key frame is differentiated (the JAX package's
+            # stop_gradient on every other frame)
+            with torch.set_grad_enabled(is_key and torch.is_grad_enabled()):
+                if cfg.use_stereo and f == F_total - 1:
+                    with towers():
+                        _, stem_prev = self.image_encoder(imgs[:, f],
+                                                          stem_only=True)
+                    stem_prev = stem_prev.detach()
+                    continue
+                bev, aux, stem = self._frame(batch, f, is_key, stem_prev,
+                                             key_cams, towers)
             if is_key:
                 key_aux = aux
             else:

@@ -14,6 +14,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .norm import BatchNorm2d
+
 
 def resize_bilinear(x, out_hw):
     """Bilinear resize of an NCHW batch, align_corners=True."""
@@ -50,11 +52,11 @@ class FPN_LSS(nn.Module):
         super().__init__()
         mid = out_channels * 2
         self.conv0 = nn.Conv2d(in_channels, mid, 3, padding=1, bias=False)
-        self.bn0 = nn.BatchNorm2d(mid, eps=1e-5)
+        self.bn0 = BatchNorm2d(mid, eps=1e-5)
         self.conv1 = nn.Conv2d(mid, mid, 3, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(mid, eps=1e-5)
+        self.bn1 = BatchNorm2d(mid, eps=1e-5)
         self.up_conv = nn.Conv2d(mid, out_channels, 3, padding=1, bias=False)
-        self.up_bn = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.up_bn = BatchNorm2d(out_channels, eps=1e-5)
         self.out_conv = nn.Conv2d(out_channels, out_channels, 1)
 
     def forward(self, x_shallow, x_deep):

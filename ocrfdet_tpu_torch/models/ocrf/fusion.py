@@ -10,13 +10,16 @@ LearnedPositionalEncoding (row/col embedding tables). BatchNorm: eps
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..norm import BatchNorm2d
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=1e-5)
 
 
 class MS_CAM(nn.Module):
@@ -149,3 +152,12 @@ class LearnedPositionalEncoding(nn.Module):
         pos = torch.cat([self.col_embed.t()[:, None, :].expand(nf, h, w),
                          self.row_embed.t()[:, :, None].expand(nf, h, w)])
         return pos[None].expand(batch, 2 * nf, h, w)
+
+
+def bev_centerness_weight(nx: int, ny: int) -> np.ndarray:
+    """sqrt-normalised distance from the grid centre, plus 1: the weight
+    of the BEV mask losses, [nx, ny]."""
+    xs, ys = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    gx = (xs - nx // 2) / (nx // 2)
+    gy = (ys - ny // 2) / (ny // 2)
+    return np.sqrt((gx ** 2 + gy ** 2) / 2.0) + 1.0

@@ -1,13 +1,15 @@
-"""Small heads of the OcRF branch used by the eval forward (counterpart
-of ocrfdet_tpu/models/ocrf/heads.py).
+"""Small heads of the OcRF branch (counterpart of
+ocrfdet_tpu/models/ocrf/heads.py).
 
-`MLP2` and `OpacityMLP` run over the last axis of channel-last voxel
-features; `SigmaMLP` runs per pixel over the channel axis of an NCHW
-map (as 1x1 convolutions with its Linear weights, so the full-resolution
-feature is never transposed); `ResizeNetwork` brings an NCHW FPN feature
-to full image resolution. The render-only heads (scale, rotation,
-colour, the NeRF factor MLPs, `LearnedBlend`) create no parameters at
-eval and are not ported yet.
+`MLP2`, `OpacityMLP` and the render-only Gaussian heads (`ScaleMLP`,
+`RotationMLP`, `ColorMLP`) run over the last axis of channel-last voxel
+features; `SigmaMLP`, and `MLP2.forward_nchw` for the NeRF factor MLPs,
+run per pixel over the channel axis of an NCHW map (as 1x1 convolutions
+with their Linear weights, so the full-resolution feature is never
+transposed); `ResizeNetwork` brings an NCHW FPN feature to full image
+resolution; `LearnedBlend` mixes the Gaussian and NeRF renders with one
+learned scalar. The render-only heads take part in training only (JAX
+creates their parameters only in a model initialised for training).
 """
 from __future__ import annotations
 
@@ -24,6 +26,12 @@ class MLP2(nn.Module):
 
     def forward(self, x):
         return self.fc2(F.relu(self.fc1(x)))
+
+    def forward_nchw(self, x):
+        """The same per pixel of an NCHW map [B, in, H, W]."""
+        def conv(fc, t):
+            return F.conv2d(t, fc.weight[:, :, None, None], fc.bias)
+        return conv(self.fc2, F.relu(conv(self.fc1, x)))
 
 
 class SigmaMLP(nn.Module):
@@ -68,3 +76,50 @@ class ResizeNetwork(nn.Module):
     def forward(self, x):
         x = self.up1(self.conv1(x))
         return self.up3(self.up2(self.conv2(x)))
+
+
+class ScaleMLP(nn.Module):
+    """softplus(MLP2(x)) -> [..., 3] Gaussian scales."""
+
+    def __init__(self, in_ch: int, hidden: int = 4):
+        super().__init__()
+        self.mlp = MLP2(in_ch, hidden, 3)
+
+    def forward(self, x):
+        return F.softplus(self.mlp(x))
+
+
+class RotationMLP(nn.Module):
+    """MLP2(x) normalised -> [..., 4] quaternion (the epsilon inside the
+    square root keeps the gradient of an all-zero output finite)."""
+
+    def __init__(self, in_ch: int, hidden: int = 4):
+        super().__init__()
+        self.mlp = MLP2(in_ch, hidden, 4)
+
+    def forward(self, x):
+        q = self.mlp(x)
+        return q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-8)
+
+
+class ColorMLP(nn.Module):
+    """sigmoid(MLP2(x)) -> [..., 3]; x is the voxel feature followed by
+    its mean reprojected RGB."""
+
+    def __init__(self, in_ch: int, hidden: int = 4):
+        super().__init__()
+        self.mlp = MLP2(in_ch, hidden, 3)
+
+    def forward(self, x):
+        return torch.sigmoid(self.mlp(x))
+
+
+class LearnedBlend(nn.Module):
+    """w a + (1 - w) b with one learned scalar w (init 0.5)."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = nn.Parameter(torch.tensor(0.5))
+
+    def forward(self, a, b):
+        return self.w * a + (1.0 - self.w) * b

@@ -15,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..norm import BatchNorm2d
+
 
 class HeightAttention(nn.Module):
     def __init__(self, channels: int, ratio: int = 1):
@@ -43,7 +45,7 @@ class _ConvBlock(nn.Module):
         super().__init__()
         self.dw = nn.Conv2d(in_ch, in_ch, 3, padding=1, groups=in_ch)
         self.pw = nn.Conv2d(in_ch, out_channels, 1)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5)
+        self.bn = BatchNorm2d(out_channels, eps=1e-5)
 
     def forward(self, x):
         return F.relu(self.bn(self.pw(self.dw(x))))

@@ -1,6 +1,5 @@
-"""OcRF view transformer, eval forward (counterpart of
-ocrfdet_tpu/models/ocrf/view_transformer_ocrf.py, `__call__` without
-the training-only render branch).
+"""OcRF view transformer (counterpart of
+ocrfdet_tpu/models/ocrf/view_transformer_ocrf.py).
 
 Per frame:
   1. the LSS view transformer (`lss`) gives depth, semantic and context;
@@ -16,12 +15,22 @@ Per frame:
   5. HOA: deformable attention of the opacity (query) over the alphas
      (key/value) at 1/6 scale, added back to the opacity, then the
      opacity U-Net -> BEV opacity logit;
-  6. dual LSS/HT fusion, ProbNet (BEV mask logit) and the two gates.
+  6. dual LSS/HT fusion, ProbNet (BEV mask logit) and the two gates;
+  7. in training, for the key frame only, the render branch: step 4
+     samples [alpha, RGB] (the unnormalised images) as one C=4 map, the
+     per-voxel Gaussian heads give scale, rotation and colour, one camera
+     per sample (`render_cam`) is rendered by the tiled splat renderer
+     (kernel K5) with the augmentation folded into K, and by NeRF
+     compositing of its full-resolution feature, and `LearnedBlend`
+     mixes the two.
 
-The conv towers run under the caller's autocast (`towers`); geometry,
-K2, K3, K4 and the masked camera mean run in fp32. Module layouts are
-NCHW; the BEV output is NCHW [B, C, Y, X], the aux logits keep the JAX
-package's channel-last [B, Y, X, 1].
+The render-only heads exist when the module is built with
+`render_heads=True` (the trainer's model); an eval model has none, as a
+JAX model initialised for eval. The conv towers run under the caller's
+autocast (`towers`); geometry, K2, K3, K4, the masked camera mean, the
+Gaussian projection and the renderer run in fp32. Module layouts are
+NCHW; the BEV output is NCHW [B, C, Y, X], the aux logits and renders
+keep the JAX package's channel-last layout.
 """
 from __future__ import annotations
 
@@ -33,20 +42,25 @@ import torch.nn.functional as F
 
 from ...config import GridConfig, ViewTransformerConfig
 from ...geometry import frustum as FR
+from ...geometry.cameras import splat_camera
 from ...ops.ht_pool import ht_pool
 from ...ops.point_sample import point_sample
+from ...ops.splat.preprocess import preprocess_gaussians, quat_scale_to_cov3d
+from ...ops.splat.render_tiled import render_gaussians_tiled
 from ..fpn import resize_bilinear
+from ..norm import BatchNorm2d
 from ..view_transformer import CameraParams, LSSViewTransformer
 from .deform_attn import DeformableAttention2D
 from .fusion import (BEVGeomAttention, DualFeatFusion,
                      LearnedPositionalEncoding, OpacityMask, ProbNet)
-from .heads import OpacityMLP, ResizeNetwork, SigmaMLP
+from .heads import (MLP2, ColorMLP, LearnedBlend, OpacityMLP,
+                    ResizeNetwork, RotationMLP, ScaleMLP, SigmaMLP)
 from .hoa import OpacityVoxelToBEV
 
 
 class OcRFViewTransformer(nn.Module):
     def __init__(self, grid: GridConfig, cfg: ViewTransformerConfig,
-                 input_size):
+                 input_size, render_heads: bool = False):
         super().__init__()
         self.grid = grid
         self.cfg = cfg
@@ -67,7 +81,7 @@ class OcRFViewTransformer(nn.Module):
         # voxel lift: per-height scalar affine + BN over the height axis
         self.height_w = nn.Parameter(torch.ones(Zh))
         self.height_b = nn.Parameter(torch.zeros(Zh))
-        self.height_bn = nn.BatchNorm2d(Zh, eps=1e-5)
+        self.height_bn = BatchNorm2d(Zh, eps=1e-5)
         self.A_MLP = OpacityMLP(c)
         self.image_feat_resize = ResizeNetwork(cfg.in_channels, c)
         self.sigma = SigmaMLP(c)
@@ -75,6 +89,22 @@ class OcRFViewTransformer(nn.Module):
             dim=Zh, dim_head=8, heads=1, downsample_factor=4,
             offset_scale=4.0, offset_kernel_size=6)
         self.OpacityVoxelToBEV = OpacityVoxelToBEV(Zh)
+        self.render_heads = render_heads
+        if render_heads:
+            self.S_MLP = ScaleMLP(c)
+            self.R_MLP = RotationMLP(c)
+            self.C_MLP = ColorMLP(c + 3)
+            self.C_MLP_nerf = MLP2(c + 3, 4, 3)
+            self.D_MLP_nerf = MLP2(c + 3, 4, 1)
+            self.img_feat_resize1 = MLP2(c + 3, 4, 3)
+            self.img_feat_resize2 = MLP2(c + 3, 4, 1)
+            self.blend_img = LearnedBlend()
+            self.blend_depth = LearnedBlend()
+            # metric voxel centres, the Gaussian means [Zh*Nq, 3]
+            pc = torch.tensor(grid.pc_range, dtype=torch.float64)
+            self.register_buffer("gauss_means", (
+                self.ref_points.double() * (pc[3:6] - pc[0:3]) + pc[0:3])
+                .reshape(-1, 3).float(), persistent=False)
 
     @property
     def D(self) -> int:
@@ -130,13 +160,19 @@ class OcRFViewTransformer(nn.Module):
         return torch.cat(parts, dim=1)
 
     def forward(self, x, cams: CameraParams, mlp_input, cost_volume,
-                towers: Callable):
+                towers: Callable, batch=None, is_key: bool = False):
         """x [B,N,Cin,h,w] FPN features; mlp_input [B,N,27]; cost_volume
         [B*N,D,Hc,Wc] or None; towers() the autocast context of the conv
-        towers. Returns (bev [B,C,Y,X], aux) with aux = depth
-        [B,N,h,w,D], semantic [B,N,h,w,2], bev_mask_logit and
-        opacity_bev_logit [B,Y,X,1]."""
+        towers; batch the request (the render branch reads imgs_wo_norm,
+        render_cam and gt_depth). Returns (bev [B,C,Y,X], aux) with aux =
+        depth [B,N,h,w,D], semantic [B,N,h,w,2], bev_mask_logit and
+        opacity_bev_logit [B,Y,X,1], and in training for the key frame
+        the renders of `render_branch`."""
         cfg = self.cfg
+        render_on = is_key and self.training
+        if render_on and not self.render_heads:
+            raise ValueError("training needs the render heads: build the "
+                             "model with render_heads=True")
         B = x.shape[0]
         Zh, Y, X = cfg.num_height, cfg.bev_h, cfg.bev_w
         with towers():
@@ -159,8 +195,12 @@ class OcRFViewTransformer(nn.Module):
         with towers():
             opacity = self.A_MLP(voxel_feat)[..., 0]         # [B,Zh,Nq]
             alphas = self.nerf_alphas(x)                     # [B,N,H,W]
-        sampled = self.sample_at_voxels(alphas[..., None], uvd, valid)
-        del alphas
+        maps = alphas[..., None]
+        if render_on:
+            imgs_rgb = batch["imgs_wo_norm"].float() / 255.0
+            maps = torch.cat([maps, imgs_rgb], dim=-1)
+        sampled = self.sample_at_voxels(maps, uvd, valid)
+        del maps
         alpha_vox = sampled[..., 0].reshape(B, Zh, Y, X)
         opac_vox = opacity.reshape(B, Zh, Y, X)
 
@@ -186,4 +226,80 @@ class OcRFViewTransformer(nn.Module):
             depth=depth, semantic=semantic,
             bev_mask_logit=bev_mask_logit.permute(0, 2, 3, 1),
             opacity_bev_logit=opacity_bev_logit.permute(0, 2, 3, 1))
+        if render_on:
+            aux.update(self.render_branch(x, cams, batch, voxel_feat,
+                                          opacity, sampled[..., 1:4],
+                                          alphas, towers))
         return geom_feat, aux
+
+    def render_branch(self, x, cams: CameraParams, batch, voxel_feat,
+                      opacity, vox_rgb, alphas, towers: Callable):
+        """Render one camera per sample (`render_cam`) from the voxel
+        Gaussians (tiled splat, K5) and by NeRF compositing, and blend
+        them. vox_rgb [B,Zh,Nq,3] is the voxels' mean reprojected colour,
+        alphas [B,N,H,W] the NeRF alphas. Returns the renders and their
+        targets, channel-last: render_img(_g/_n) [B,H,W,3],
+        render_depth(_g/_n) [B,H,W], render_gt_img [B,H,W,3],
+        render_gt_depth [B,H,W]."""
+        cfg = self.cfg
+        B = x.shape[0]
+        Zh = cfg.num_height
+        G = Zh * cfg.bev_h * cfg.bev_w
+        H, W = cfg.render_image_size
+        cam = batch["render_cam"].long()
+        b = torch.arange(B, device=cam.device)
+        imgs_rgb = batch["imgs_wo_norm"].float() / 255.0
+
+        def take_cam(t):
+            return t[b, cam]
+
+        g_in = voxel_feat.reshape(B, G, -1)
+        with towers():
+            scaling = self.S_MLP(g_in)
+            rotation = self.R_MLP(g_in)
+            color = self.C_MLP(torch.cat(
+                [g_in, vox_rgb.reshape(B, G, 3).to(g_in.dtype)], -1))
+        opac = opacity.reshape(B, G)
+
+        # the chosen camera's pose in the BDA ego frame, aug folded into K
+        rot_c, tran_c, K_c = (take_cam(t) for t in (cams.rots, cams.trans,
+                                                     cams.intrins))
+        pr_c, pt_c = take_cam(cams.post_rots), take_cam(cams.post_trans)
+        gt_img = take_cam(imgs_rgb)                            # [B,H,W,3]
+        c2e = torch.zeros((B, 4, 4), device=x.device)
+        c2e[:, :3, :3] = cams.bda @ rot_c
+        c2e[:, :3, 3] = (cams.bda @ tran_c[..., None])[..., 0]
+        c2e[:, 3, 3] = 1.0
+        P3 = torch.zeros((B, 3, 3), device=x.device)
+        P3[:, :2, :2] = pr_c[:, :2, :2]
+        P3[:, :2, 2] = pt_c[:, :2]
+        P3[:, 2, 2] = 1.0
+        sc = splat_camera(c2e, P3 @ K_c, (H, W), znear=cfg.znear,
+                          zfar=cfg.zfar)
+        cov3d = quat_scale_to_cov3d(rotation.float(), scaling.float())
+        g = preprocess_gaussians(self.gauss_means, cov3d, sc)
+        img_g, dep_g, _ = render_gaussians_tiled(g, color.float(),
+                                                 opac.float(), H, W)
+
+        # NeRF render of the chosen camera
+        with towers():
+            full = self.image_feat_resize(take_cam(x))         # [B,c,H,W]
+            alpha_c = take_cam(alphas)[:, None].to(full.dtype)
+            fc_in = torch.cat([full, gt_img.permute(0, 3, 1, 2)
+                               .to(full.dtype)], dim=1)
+            cw = torch.softmax(torch.sigmoid(
+                self.C_MLP_nerf.forward_nchw(fc_in)), dim=1)
+            radiance = F.relu(self.img_feat_resize1.forward_nchw(fc_in)) * cw
+            dw = torch.softmax(F.relu(self.D_MLP_nerf.forward_nchw(fc_in)),
+                               dim=1)
+            radiance_d = F.relu(
+                self.img_feat_resize2.forward_nchw(fc_in)) * dw
+            img_n = (alpha_c * radiance).float().permute(0, 2, 3, 1)
+            dep_n = (alpha_c * radiance_d)[:, 0].float()
+        return dict(
+            render_img=self.blend_img(img_g, img_n), render_img_g=img_g,
+            render_img_n=img_n,
+            render_depth=self.blend_depth(dep_g, dep_n),
+            render_depth_g=dep_g, render_depth_n=dep_n,
+            render_gt_img=gt_img,
+            render_gt_depth=take_cam(batch["gt_depth"]))

@@ -4,7 +4,10 @@ ocrfdet_tpu/models/resnet.py).
 NCHW modules. Submodules are named after the JAX package's flax scopes
 (`ConvBN_0/Conv_0`, `BatchNorm_0`, `layer1_0`, `stage0_1`, `downsample`)
 so that utils/weights.py maps flax variables onto them mechanically.
-BatchNorm uses eps 1e-5 and, in eval, its running statistics.
+BatchNorm uses eps 1e-5 and, in eval, its running statistics. With
+`remat` (the config's backbone.remat, flax's `nn.remat` of every block)
+the image backbone's blocks are checkpointed in training: their
+activations are recomputed in the backward instead of kept.
 """
 from __future__ import annotations
 
@@ -13,6 +16,9 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .norm import BatchNorm2d, frozen_stats
 
 
 class ConvBN(nn.Module):
@@ -24,7 +30,7 @@ class ConvBN(nn.Module):
         pad = dilation * (kernel // 2)
         self.Conv_0 = nn.Conv2d(in_ch, features, kernel, stride, pad,
                                 dilation=dilation, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.BatchNorm_0 = BatchNorm2d(features, eps=1e-5, momentum=0.1)
         self.use_relu = use_relu
 
     def forward(self, x):
@@ -66,6 +72,20 @@ class Bottleneck(nn.Module):
         return F.relu(residual + y)
 
 
+def _checkpointed(block: nn.Module, x):
+    """block(x) with its activations recomputed in the backward; the
+    recomputation leaves the BatchNorm statistics as they are."""
+    calls = []
+
+    def run(t):
+        if calls:
+            with frozen_stats():
+                return block(t)
+        calls.append(1)
+        return block(t)
+    return checkpoint(run, x, use_reentrant=False)
+
+
 _RESNET_SPECS = {
     18: (BasicBlock, (2, 2, 2, 2), 1),
     34: (BasicBlock, (3, 4, 6, 3), 1),
@@ -81,10 +101,13 @@ class ResNet(nn.Module):
     only (the stereo reference frame's feature).
     """
 
-    def __init__(self, depth: int = 50, out_indices: Tuple[int, ...] = (0, 2, 3)):
+    def __init__(self, depth: int = 50,
+                 out_indices: Tuple[int, ...] = (0, 2, 3),
+                 remat: bool = False):
         super().__init__()
         block_cls, layers, expansion = _RESNET_SPECS[depth]
         self.out_indices = tuple(out_indices)
+        self.remat = remat
         self.stem = ConvBN(3, 64, 7, 2)
         self.stage_names = []
         in_ch = 64
@@ -104,9 +127,11 @@ class ResNet(nn.Module):
     def forward(self, x, stem_only: bool = False):
         x = F.max_pool2d(self.stem(x), 3, 2, 1)   # -inf padding
         outs = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for i, names in enumerate(self.stage_names):
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                x = _checkpointed(block, x) if remat else block(x)
             if stem_only and i == 0:
                 return x
             if i in self.out_indices:

@@ -6,9 +6,10 @@ ocrfdet_tpu/ops/bev_pool.py and ops/bev_pool_pallas.py).
 
 `bev_pool_points` is the wrapper of kernel K2 (`csrc/bev_pool.cu`, the
 counterpart of the Pallas `bev_pool_points` and of the reference's CUDA
-bev_pool_v2): for CUDA tensors it launches the kernel, for CPU tensors
-it runs `bev_pool_points_plain` (gather + `index_add_`, differentiable).
-The kernel's backward is not ported yet: on CUDA, backward raises.
+bev_pool_v2): for CUDA tensors it launches the forward kernel, and its
+backward (dfeat and dw) launches the backward kernel (`BWD_KERNEL`); for
+CPU tensors it runs `bev_pool_points_plain` (gather + `index_add_`),
+whose autograd is the backward's plain version.
 """
 from __future__ import annotations
 
@@ -23,6 +24,11 @@ KERNEL = kernels.Kernel(
     argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int64]
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     replaces="ocrfdet_tpu/ops/bev_pool_pallas.py:95")   # bev_pool_points
+BWD_KERNEL = kernels.Kernel(
+    name="bev_pool_bwd", source="bev_pool.cu", symbol="bev_pool_backward",
+    argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int64]
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    replaces="ocrfdet_tpu/ops/bev_pool_pallas.py:61")   # _bwd_kernel
 
 
 def _flat_cell_ids(vox_idx, valid, bev_size):
@@ -62,12 +68,35 @@ class _BevPoolPointsCUDA(torch.autograd.Function):
                       kernels.ptr(cell_id), kernels.ptr(feat),
                       kernels.ptr(out), B, P, npix, C, cells,
                       kernels.stream_of(feat))
+        ctx.save_for_backward(w, pix_id, cell_id, feat)
+        ctx.cells = cells
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "bev_pool backward kernel is not ported yet (training slice)")
+        w, pix_id, cell_id, feat = ctx.saved_tensors
+        dw, dfeat = bev_pool_points_backward(w, pix_id, cell_id, feat,
+                                             grad_out, ctx.cells)
+        return dw, None, None, dfeat, None
+
+
+def bev_pool_points_backward(w, pix_id, cell_id, feat, grad_out,
+                             cells: int):
+    """K2's backward kernel on CUDA tensors (the forward's inputs and
+    the cotangent g [B,cells,C]): (dw [B,P], dfeat [B,npix,C]) f32."""
+    B, P = w.shape
+    npix, C = feat.shape[1:]
+    g = grad_out.float().contiguous()
+    if tuple(g.shape) != (B, cells, C):
+        raise ValueError(f"bev_pool backward: g {tuple(g.shape)} != "
+                         f"{(B, cells, C)}")
+    dfeat = torch.zeros_like(feat)
+    dw = torch.empty_like(w)
+    BWD_KERNEL.launch(kernels.ptr(w), kernels.ptr(pix_id),
+                      kernels.ptr(cell_id), kernels.ptr(feat), kernels.ptr(g),
+                      kernels.ptr(dfeat), kernels.ptr(dw), B, P, npix, C,
+                      cells, kernels.stream_of(feat))
+    return dw, dfeat
 
 
 def bev_pool_points(w, pix_id, cell_id, feat, cells: int):

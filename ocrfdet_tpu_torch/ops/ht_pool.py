@@ -11,8 +11,10 @@ with wv = valid as fp32. `ht_pool` is the wrapper of kernel K3
 (`csrc/ht_pool.cu`, the counterpart of the Pallas `_ht_pool_mm`
 forward): for CUDA tensors it launches the kernel, for CPU tensors it
 runs `ht_pool_points_plain`, the per-camera gather of the JAX
-`ht_pool_ref`. Both compute in fp32 from the same index streams. The
-kernel's backward is not ported yet: on CUDA, backward raises.
+`ht_pool_ref`. Both compute in fp32 from the same index streams. On
+CUDA the backward (ddep, dctx) launches K3's backward kernel
+(`BWD_KERNEL`); on the CPU it is the plain version's autograd. The index
+streams and wv get no gradient.
 """
 from __future__ import annotations
 
@@ -26,6 +28,10 @@ KERNEL = kernels.Kernel(
     name="ht_pool", source="ht_pool.cu", symbol="ht_pool_forward",
     argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     replaces="ocrfdet_tpu/ops/ht_pool.py:169")   # _ht_pool_mm
+BWD_KERNEL = kernels.Kernel(
+    name="ht_pool_bwd", source="ht_pool.cu", symbol="ht_pool_backward",
+    argtypes=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    replaces="ocrfdet_tpu/ops/ht_pool.py:118")   # _bwd_kernel
 MAX_C = 128     # channels the kernel keeps in registers (4 per lane)
 
 
@@ -72,12 +78,32 @@ class _HtPoolCUDA(torch.autograd.Function):
         KERNEL.launch(kernels.ptr(dep), kernels.ptr(ctx), kernels.ptr(pix),
                       kernels.ptr(di), kernels.ptr(wv), kernels.ptr(out),
                       B, N, HW, D, C, Zh, Nq, kernels.stream_of(dep))
+        ctx_.save_for_backward(dep, ctx, pix, di, wv)
         return out
 
     @staticmethod
     def backward(ctx_, grad_out):
-        raise NotImplementedError(
-            "ht_pool backward kernel is not ported yet (training slice)")
+        ddep, dctx = ht_pool_points_backward(*ctx_.saved_tensors, grad_out)
+        return ddep, dctx, None, None, None
+
+
+def ht_pool_points_backward(dep, ctx, pix, di, wv, grad_out):
+    """K3's backward kernel on CUDA tensors (the forward's inputs and
+    the cotangent dout [B,Nq,C]): (ddep [B,N,HW,D], dctx [B,N,HW,C])."""
+    B, N, HW, D = dep.shape
+    C = ctx.shape[-1]
+    Zh, Nq = pix.shape[2], pix.shape[3]
+    dout = grad_out.float().contiguous()
+    if tuple(dout.shape) != (B, Nq, C):
+        raise ValueError(f"ht_pool backward: dout {tuple(dout.shape)} != "
+                         f"{(B, Nq, C)}")
+    ddep = torch.zeros_like(dep)
+    dctx = torch.zeros_like(ctx)
+    BWD_KERNEL.launch(kernels.ptr(dep), kernels.ptr(ctx), kernels.ptr(pix),
+                      kernels.ptr(di), kernels.ptr(wv), kernels.ptr(dout),
+                      kernels.ptr(ddep), kernels.ptr(dctx),
+                      B, N, HW, D, C, Zh, Nq, kernels.stream_of(dep))
+    return ddep, dctx
 
 
 def ht_pool_points(dep, ctx, pix, di, wv):

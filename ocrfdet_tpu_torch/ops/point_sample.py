@@ -11,8 +11,10 @@ weighing zero: for px in (-1, 0) the tap u = 0 weighs 1-|px|. This is
 counterpart of the Pallas `_point_sample_mm` forward): for CUDA tensors
 it launches the kernel, for CPU tensors it runs
 `point_sample_points_plain`.
-Both compute in fp32. The kernel's backward is not ported yet: on
-CUDA, backward raises.
+Both compute in fp32. On CUDA the backward (the maps' gradient, for
+every channel) launches K4's backward kernel (`BWD_KERNEL`); px and py
+get none, as in the Pallas VJP. On the CPU it is the plain version's
+autograd.
 """
 from __future__ import annotations
 
@@ -28,6 +30,12 @@ KERNEL = kernels.Kernel(
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_int64]
     + [ctypes.c_void_p],
     replaces="ocrfdet_tpu/ops/point_sample.py:119")   # _point_sample_mm
+BWD_KERNEL = kernels.Kernel(
+    name="point_sample_bwd", source="point_sample.cu",
+    symbol="point_sample_backward",
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_int64]
+    + [ctypes.c_void_p],
+    replaces="ocrfdet_tpu/ops/point_sample.py:83")   # _bwd_kernel
 MAX_C = 4
 
 
@@ -78,13 +86,31 @@ class _PointSampleCUDA(torch.autograd.Function):
         KERNEL.launch(kernels.ptr(maps), kernels.ptr(px), kernels.ptr(py),
                       kernels.ptr(out), BN, H, W, C, P,
                       kernels.stream_of(maps))
+        ctx.save_for_backward(px, py)
+        ctx.map_shape = maps.shape
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "point_sample backward kernel is not ported yet (training "
-            "slice)")
+        px, py = ctx.saved_tensors
+        return (point_sample_points_backward(px, py, grad_out,
+                                             ctx.map_shape), None, None)
+
+
+def point_sample_points_backward(px, py, grad_out, map_shape):
+    """K4's backward kernel on CUDA tensors: px/py [BN,P] and the
+    cotangent dout [BN,P,C] -> dmap [BN,H,W,C] f32."""
+    BN, H, W, C = map_shape
+    P = px.shape[1]
+    dout = grad_out.float().contiguous()
+    if tuple(dout.shape) != (BN, P, C):
+        raise ValueError(f"point_sample backward: dout {tuple(dout.shape)}"
+                         f" != {(BN, P, C)}")
+    dmap = torch.zeros((BN, H, W, C), dtype=torch.float32, device=px.device)
+    BWD_KERNEL.launch(kernels.ptr(px), kernels.ptr(py), kernels.ptr(dout),
+                      kernels.ptr(dmap), BN, H, W, C, P,
+                      kernels.stream_of(px))
+    return dmap
 
 
 def point_sample_points(maps, px, py):

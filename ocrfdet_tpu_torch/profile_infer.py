@@ -27,8 +27,13 @@ from . import entry
 GROUPS = (
     ("K1 cost_volume", ("cost_volume_kernel",)),
     ("K2 bev_pool", ("bev_pool_forward_kernel",)),
+    ("K2 bev_pool bwd", ("bev_pool_backward_kernel",)),
     ("K3 ht_pool", ("ht_pool_forward_kernel",)),
+    ("K3 ht_pool bwd", ("ht_pool_backward_kernel",)),
     ("K4 point_sample", ("point_sample_forward_kernel",)),
+    ("K4 point_sample bwd", ("point_sample_backward_kernel",)),
+    ("K5 composite_tiles", ("composite_forward_kernel",)),
+    ("K5 composite_tiles bwd", ("composite_backward_kernel",)),
     ("conv / gemm", ("conv", "cudnn", "xmma", "gemm", "cutlass", "implicit",
                      "sm90", "wgrad", "dgrad", "fprop")),
     ("batch norm", ("batch_norm", "bn_fw")),
@@ -62,6 +67,31 @@ def busy_us(intervals) -> float:
     return total
 
 
+def device_breakdown(prof, n: int, wall_us: float) -> dict:
+    """The traced window's device time per unit of work (n units): busy
+    time (union of kernel intervals), idle share, events, time per
+    kernel group and the ten kernels that take the most."""
+    by_group = defaultdict(float)
+    by_kernel = defaultdict(float)
+    intervals = []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        s, e = evt.time_range.start, evt.time_range.end
+        intervals.append((s, e))
+        by_group[group_of(evt.name)] += e - s
+        by_kernel[evt.name] += e - s
+    busy = busy_us(intervals)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    return dict(
+        device_busy_ms=busy / n / 1e3,
+        device_idle_share=(1.0 - busy / wall_us) if intervals else None,
+        device_events=len(intervals),
+        group_ms={g: t / n / 1e3 for g, t in
+                  sorted(by_group.items(), key=lambda kv: -kv[1])},
+        top_kernels_ms=[(k[:80], t / n / 1e3) for k, t in top])
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--requests", type=int, default=3)
@@ -84,30 +114,13 @@ def main(argv=None) -> dict:
             nms_s += timings["nms"]
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_group = defaultdict(float)
-    by_kernel = defaultdict(float)
-    intervals = []
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        s, e = evt.time_range.start, evt.time_range.end
-        intervals.append((s, e))
-        by_group[group_of(evt.name)] += e - s
-        by_kernel[evt.name] += e - s
     n = args.requests
-    busy = busy_us(intervals)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     out = dict(
         device=torch.cuda.get_device_name(0),
         with_ocrf=cfg.with_ocrf, compute_dtype=cfg.compute_dtype,
         requests=n, latency_ms=wall_us / n / 1e3,
         host_nms_ms=nms_s / n * 1e3,
-        device_busy_ms=busy / n / 1e3,
-        device_idle_share=(1.0 - busy / wall_us) if intervals else None,
-        device_events=len(intervals),
-        group_ms={g: t / n / 1e3 for g, t in
-                  sorted(by_group.items(), key=lambda kv: -kv[1])},
-        top_kernels_ms=[(k[:80], t / n / 1e3) for k, t in top])
+        **device_breakdown(prof, n, wall_us))
     print(json.dumps(out), flush=True)
     return out
 

@@ -34,6 +34,7 @@ RAW_PARAMS = {
     "height_b": ("zeros", None),
     "row_embed": ("uniform", 1.0),   # nn.initializers.uniform(1.0)
     "col_embed": ("uniform", 1.0),
+    "w": ("constant", 0.5),          # LearnedBlend's scalar
 }
 
 
@@ -135,4 +136,6 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             p.copy_(cpu.uniform_(0.0, arg, generator=g))
         elif kind == "zeros":
             p.zero_()
+        elif kind == "constant":
+            p.fill_(arg)
     return model

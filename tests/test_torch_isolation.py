@@ -54,7 +54,13 @@ def test_importing_every_port_module_loads_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert len(modules) >= 20
+    # the training slice's modules are among them
+    assert {"ocrfdet_tpu_torch.train.step", "ocrfdet_tpu_torch.train.optim",
+            "ocrfdet_tpu_torch.ops.splat.composite",
+            "ocrfdet_tpu_torch.ops.splat.render_tiled",
+            "ocrfdet_tpu_torch.core.targets",
+            "ocrfdet_tpu_torch.bench_train"} <= set(modules)
+    assert len(modules) >= 35
 
 
 def test_entry_points_default_to_cuda():
@@ -71,23 +77,28 @@ def test_entry_points_default_to_cuda():
         entry.build_detector(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry.make_batch(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry.build_trainer(cfg)
     model = entry.build_detector(cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
     assert not model.training
 
 
 def test_unported_options_raise():
-    """Training and spatial sharding are not ported; the OcRF branch
-    (with_ocrf=True) is, and builds."""
+    """Spatial sharding and the VGGT teacher (GeoEnhDet) are not ported;
+    training is, but an eval model (no render heads) refuses it."""
     import dataclasses
-    from ocrfdet_tpu_torch.config import tiny_config
+    from ocrfdet_tpu_torch.config import VGGTTeacherConfig, tiny_config
     from ocrfdet_tpu_torch.data.synthetic import make_batch
     from ocrfdet_tpu_torch.models.detector import OcRFDet
     model = OcRFDet(tiny_config(with_ocrf=True))
-    batch = {k: torch.from_numpy(v) for k, v in
-             make_batch(model.cfg, batch_size=1).items()}
-    with pytest.raises(NotImplementedError, match="training"):
+    batch = {k: [torch.from_numpy(t) for t in v] if isinstance(v, list)
+             else torch.from_numpy(v) for k, v in
+             make_batch(model.cfg, batch_size=1, with_targets=True).items()}
+    with pytest.raises(ValueError, match="render_heads=True"):
         model.train()(batch)
+    with pytest.raises(NotImplementedError, match="VGGT"):
+        OcRFDet(tiny_config(vggt_teacher=VGGTTeacherConfig()))
     cfg = tiny_config(with_ocrf=False)
     sharded = dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, space_axis=2, shard_cameras=True))

@@ -14,7 +14,14 @@ version's, so no out-of-view flag may flip); K2 rtol 1e-5 / atol 1e-5
 (fp32 atomics add in a varying order); K3 rtol 1e-5 / atol 1e-5 of the
 output scale (the plain version sums the heights in its own order);
 K4 rtol 1e-5 / atol 1e-6 (the same products and sums, rounded
-separately in both).
+separately in both). The backward kernels of K2, K3 and K4 add with
+fp32 atomics in a varying order: rtol 1e-5, atol 1e-5 of each
+gradient's scale, against the plain versions' autograd. K5 (forward and
+backward) against its plain version, which sums in the same 128-wide
+chunks but in another order inside a chunk: rtol 1e-4, atol 1e-5 of
+each output's scale (the tolerance of tests/test_splat.py for the Pallas
+kernel against the XLA compositor); the median depth must agree on every
+pixel but where T crosses 0.5 within rounding (at most 1 in 10^4).
 """
 import numpy as np
 import pytest
@@ -27,6 +34,7 @@ from ocrfdet_tpu_torch.ops import bev_pool as bp
 from ocrfdet_tpu_torch.ops import cost_volume as cvm
 from ocrfdet_tpu_torch.ops import ht_pool as htp
 from ocrfdet_tpu_torch.ops import point_sample as ps
+from ocrfdet_tpu_torch.ops.splat import composite as ct
 
 pytestmark = pytest.mark.cuda
 
@@ -103,16 +111,53 @@ def test_bev_pool_kernel_matches_plain(dev):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _grads(fn, args, diff, cot):
+    """Gradients of <fn(*args), cot> with respect to args[i], i in diff."""
+    args = [a.detach().clone().requires_grad_(i in diff)
+            if torch.is_tensor(a) else a for i, a in enumerate(args)]
+    out = fn(*args)
+    torch.autograd.backward(out, cot)
+    return [args[i].grad for i in diff]
+
+
+def _assert_grads_close(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
 def test_bev_pool_kernel_rejects_bad_inputs_and_backward(dev):
+    """Bad inputs raise; the backward (dw, dfeat) launches the backward
+    kernel once and matches the plain version's autograd."""
     w, pix, cell, feat, cells = _pool_inputs(dev)
     with pytest.raises(TypeError, match="int32"):
         bp.bev_pool_points(w, pix.long(), cell, feat, cells)
     with pytest.raises(ValueError, match="contiguous"):
         bp.bev_pool_points(w, pix, cell, feat.transpose(1, 2).contiguous()
                            .transpose(1, 2), cells)
-    out = bp.bev_pool_points(w.requires_grad_(), pix, cell, feat, cells)
-    with pytest.raises(NotImplementedError, match="backward"):
-        out.sum().backward()
+    cot = torch.randn((w.shape[0], cells, feat.shape[-1]), device=dev)
+    before = bp.BWD_KERNEL.launches
+    got = _grads(bp.bev_pool_points, (w, pix, cell, feat, cells), (0, 3),
+                 cot)
+    torch.cuda.synchronize()
+    assert bp.BWD_KERNEL.launches == before + 1
+    want = _grads(bp.bev_pool_points_plain, (w, pix, cell, feat, cells),
+                  (0, 3), cot)
+    assert bp.BWD_KERNEL.launches == before + 1
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(B=1, P=777, npix=33, C=7,
+                                             cells=50)],
+                         ids=["c80", "ragged"])
+def test_bev_pool_backward_kernel_matches_plain(dev, kw):
+    w, pix, cell, feat, cells = _pool_inputs(dev, seed=1, **kw)
+    cot = torch.randn((w.shape[0], cells, feat.shape[-1]), device=dev)
+    got = _grads(bp.bev_pool_points, (w, pix, cell, feat, cells), (0, 3),
+                 cot)
+    want = _grads(bp.bev_pool_points_plain, (w, pix, cell, feat, cells),
+                  (0, 3), cot)
+    _assert_grads_close(got, want)
 
 
 def test_tiny_slice_through_the_kernels_matches_plain(dev, monkeypatch):
@@ -175,9 +220,29 @@ def test_ht_pool_kernel_rejects_bad_inputs_and_backward(dev):
                                             device=dev), pix, di, wv)
     with pytest.raises(ValueError, match="wv"):
         htp.ht_pool_points(dep, ctx, pix, di, wv[..., :-1].contiguous())
-    out = htp.ht_pool_points(dep, ctx.requires_grad_(), pix, di, wv)
-    with pytest.raises(NotImplementedError, match="backward"):
-        out.sum().backward()
+    before = htp.BWD_KERNEL.launches
+    cot = torch.randn((dep.shape[0], pix.shape[3], ctx.shape[-1]),
+                      device=dev)
+    got = _grads(htp.ht_pool_points, (dep, ctx, pix, di, wv), (0, 1), cot)
+    torch.cuda.synchronize()
+    assert htp.BWD_KERNEL.launches == before + 1
+    want = _grads(htp.ht_pool_points_plain, (dep, ctx, pix, di, wv), (0, 1),
+                  cot)
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(B=2, C=16, Zh=5, Nq=64),
+                                dict(C=128, Nq=33)],
+                         ids=["c80", "b2c16", "c128"])
+def test_ht_pool_backward_kernel_matches_plain(dev, kw):
+    """Only bin di of each point gets a depth gradient; Nq % 256 != 0."""
+    args = _ht_inputs(dev, seed=1, **kw)
+    dep, ctx, pix = args[:3]
+    cot = torch.randn((dep.shape[0], pix.shape[3], ctx.shape[-1]),
+                      device=dev)
+    got = _grads(htp.ht_pool_points, args, (0, 1), cot)
+    want = _grads(htp.ht_pool_points_plain, args, (0, 1), cot)
+    _assert_grads_close(got, want)
 
 
 def _ps_inputs(dev, seed=0, BN=3, H=40, W=70, C=1, P=5000):
@@ -217,9 +282,91 @@ def test_point_sample_kernel_rejects_bad_inputs_and_backward(dev):
                                px, py)
     with pytest.raises(ValueError, match="contiguous"):
         ps.point_sample_points(maps, px[:, ::2], py[:, ::2])
-    out = ps.point_sample_points(maps.requires_grad_(), px, py)
-    with pytest.raises(NotImplementedError, match="backward"):
-        out.sum().backward()
+    before = ps.BWD_KERNEL.launches
+    cot = torch.randn((*px.shape, maps.shape[-1]), device=dev)
+    got = _grads(ps.point_sample_points, (maps, px, py), (0,), cot)
+    torch.cuda.synchronize()
+    assert ps.BWD_KERNEL.launches == before + 1
+    want = _grads(ps.point_sample_points_plain, (maps, px, py), (0,), cot)
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("C", [1, 4])
+def test_point_sample_backward_kernel_matches_plain(dev, C):
+    """Edge points in (-1, 0) and (W-1, W), integer points, P % 256 != 0."""
+    maps, px, py = _ps_inputs(dev, seed=1, C=C, P=4999)
+    cot = torch.randn((*px.shape, C), device=dev)
+    got = _grads(ps.point_sample_points, (maps, px, py), (0,), cot)
+    want = _grads(ps.point_sample_points_plain, (maps, px, py), (0,), cot)
+    _assert_grads_close(got, want)
+
+
+def _composite_inputs(dev, seed=0, T=12, n_tx=4, M=200):
+    """Random depth-sorted Gaussians per 16x16 tile, ~20% dead slots."""
+    rng = np.random.default_rng(seed)
+    W, H = n_tx * 16, -(-T // n_tx) * 16
+    s = rng.uniform(1, 6, (T, M))
+    ca = 1 / s ** 2
+    cc = 1 / (s * rng.uniform(0.7, 1.3, (T, M))) ** 2
+    cb = rng.uniform(-0.3, 0.3, (T, M)) * np.sqrt(ca * cc)
+    attrs = np.stack([rng.uniform(-5, W + 5, (T, M)),
+                      rng.uniform(-5, H + 5, (T, M)), ca, cb, cc,
+                      np.ceil(3 * s * 1.3),
+                      np.sort(rng.uniform(1, 30, (T, M)), 1),
+                      rng.uniform(0, 1, (T, M)) * (rng.random((T, M)) > 0.2),
+                      *rng.random((3, T, M))], -1)
+    cots = (rng.standard_normal((T, 256, 3)), rng.standard_normal((T, 256)),
+            rng.standard_normal((T, 256)))
+    return [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+            .to(dev) for a in (attrs, *cots)]
+
+
+def _assert_composite_close(got, want):
+    (rgb, med, logt), (prgb, pmed, plogt) = got, want
+    for a, b in ((rgb, prgb), (logt, plogt)):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.detach().abs().max()))
+    flips = int((med - pmed).abs().gt(1e-5 * pmed.abs()).sum())
+    assert flips <= max(1, med.numel() // 10000), flips
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(T=13, n_tx=5, M=300),
+                                dict(T=8, n_tx=4, M=512)],
+                         ids=["m200", "ragged", "m512"])
+def test_composite_kernel_matches_plain(dev, kw):
+    """K5 forward and backward (one launch each) against the plain
+    mirror; T not a multiple of the tiles per row, M not a multiple of
+    128 in the first two cases."""
+    attrs, g_rgb, g_med, g_logt = _composite_inputs(dev, **kw)
+    T, n_tx = attrs.shape[0], kw.get("n_tx", 4)
+    before = (ct.KERNEL.launches, ct.BWD_KERNEL.launches)
+    a = attrs.clone().requires_grad_()
+    got = ct.composite_tiles(a, T, n_tx, 16, 16)
+    torch.autograd.backward(got, (g_rgb, g_med, g_logt))
+    torch.cuda.synchronize()
+    assert (ct.KERNEL.launches, ct.BWD_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    p = attrs.clone().requires_grad_()
+    want = ct.composite_tiles_plain(p, T, n_tx, 16, 16)
+    torch.autograd.backward(want, (g_rgb, g_med, g_logt))
+    assert (ct.KERNEL.launches, ct.BWD_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_composite_close(got, want)
+    for i, name in enumerate(ct.STREAMS):
+        torch.testing.assert_close(
+            a.grad[..., i], p.grad[..., i], rtol=1e-4,
+            atol=1e-5 * max(1e-6, float(p.grad[..., i].abs().max())),
+            msg=name)
+
+
+def test_composite_kernel_rejects_bad_inputs(dev):
+    attrs = _composite_inputs(dev)[0]
+    with pytest.raises(TypeError, match="float32"):
+        ct.composite_tiles(attrs.double(), 12, 4, 16, 16)
+    with pytest.raises(ValueError, match="256 pixels"):
+        ct.composite_tiles(attrs, 12, 4, 8, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        ct.composite_tiles(attrs, 5, 4, 16, 16)
 
 
 def test_tiny_ocrf_slice_through_the_kernels_matches_plain(dev,
@@ -250,3 +397,21 @@ def test_tiny_ocrf_slice_through_the_kernels_matches_plain(dev,
                                p_aux["opacity_bev_logit"], rtol=1e-4,
                                atol=1e-4)
     assert len(dets) == 1 and dets[0]["boxes"].shape[1] == 9
+
+
+def test_tiny_training_step_through_the_kernels(dev):
+    """One tiny OcRF training step on the card (stereo on): 2 launches
+    of K1 and of each forward of K2-K4, 1 of each of their backwards and
+    of K5's forward and backward; finite losses, the step committed."""
+    cfg = tiny_config()
+    state = entry.build_trainer(cfg, dev, seed=0)
+    batch = entry.make_batch(cfg, seed=0, batch_size=2, device=dev,
+                             with_targets=True)
+    ks = (cvm.KERNEL, bp.KERNEL, bp.BWD_KERNEL, htp.KERNEL, htp.BWD_KERNEL,
+          ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL, ct.BWD_KERNEL)
+    before = [k.launches for k in ks]
+    metrics = entry.train_step(state, batch)
+    assert [k.launches - b for k, b in zip(ks, before)] == [
+        2, 2, 1, 2, 1, 2, 1, 1, 1]
+    assert metrics["skipped_nonfinite"] == 0.0 and state.step == 1
+    assert all(np.isfinite(v) for v in metrics.values())

@@ -102,14 +102,19 @@ def test_config_copy_matches_jax(factory, overrides):
 
 @pytest.mark.parametrize("stereo", [True, False])
 def test_make_batch_matches_jax(stereo):
+    """The eval batch equals JAX's on its keys; the training batch has
+    JAX's keys and equals it on every one."""
     cfg = tconfig.tiny_config(use_stereo=stereo)
     jcfg = jconfig.tiny_config(use_stereo=stereo)
     mine = tsyn.make_batch(cfg, batch_size=2, seed=3)
     ref = jsyn.make_batch(jcfg, batch_size=2, seed=3, with_targets=False)
     for k, v in mine.items():
         np.testing.assert_array_equal(v, ref[k], err_msg=k)
-    with pytest.raises(NotImplementedError):
-        tsyn.make_batch(cfg, with_targets=True)
+    mine = tsyn.make_batch(cfg, batch_size=2, seed=3, with_targets=True)
+    ref = jsyn.make_batch(jcfg, batch_size=2, seed=3, with_targets=True)
+    assert set(mine) == set(ref)
+    for k, v in mine.items():
+        np.testing.assert_equal(v, ref[k], err_msg=k)
 
 
 def test_frustum_templates_match_jax():
