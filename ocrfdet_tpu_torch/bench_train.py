@@ -5,9 +5,9 @@
     python -m ocrfdet_tpu_torch.bench_train --profile 3
 
 Builds the trainer of `ocrfdet_config()` (bf16 conv towers, OcRF + HOA
-and the render branch, seeded random weights), makes `--batches`
-synthetic training batches (`make_batch(with_targets=True)`, seeds
-0..), runs `--warmup` steps and then `--steps` timed steps, one at a
+and the render branch, seeded random weights), makes two synthetic
+training batches (`make_batch(with_targets=True)`, seeds 0 and 1), runs
+3 warm-up steps and then `--steps` timed steps over them, one at a
 time, each ending in the guard's host read (a device sync). Prints one
 JSON line: frames/s (samples x steps / wall time of the timed steps),
 the median and p90 step time, the peak device memory
@@ -32,6 +32,9 @@ from . import entry
 from .config import ocrfdet_config
 from .profile_infer import device_breakdown
 
+WARMUP = 3          # steps before the timed window
+N_BATCHES = 2       # training batches the steps cycle over
+
 
 def percentile(xs, q: float) -> float:
     """The q-th percentile of xs (nearest rank)."""
@@ -39,19 +42,15 @@ def percentile(xs, q: float) -> float:
     return xs[min(len(xs) - 1, max(0, round(q / 100 * len(xs)) - 1))]
 
 
-def run(cfg, steps: int, warmup: int, batch_size: int, n_batches: int = 2,
-        device=None, seed: int = 0) -> Dict:
-    """Train `steps` timed steps after `warmup`; returns the trainer
-    state and the window's numbers. The caller may zero the kernels'
-    launch counts before calling and read them after: nothing else
-    launches a kernel in between."""
-    device = entry.resolve_device(device)
-    state = entry.build_trainer(cfg, device, seed=seed)
+def run(cfg, steps: int, batch_size: int) -> Dict:
+    """Train `steps` timed steps after WARMUP on the card; returns the
+    trainer state and the window's numbers."""
+    state = entry.build_trainer(cfg)
     batches = [entry.make_batch(cfg, seed=s, batch_size=batch_size,
-                                device=device, with_targets=True)
-               for s in range(n_batches)]
-    for i in range(warmup):
-        entry.train_step(state, batches[i % n_batches])
+                                with_targets=True)
+               for s in range(N_BATCHES)]
+    for i in range(WARMUP):
+        entry.train_step(state, batches[i % N_BATCHES])
     return window(state, batches, steps)
 
 
@@ -82,14 +81,12 @@ def window(state, batches, steps: int) -> Dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--batch-size", type=int, default=2)
-    ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--profile", type=int, default=0,
                     help="trace this many more steps with torch.profiler")
     args = ap.parse_args()
     cfg = ocrfdet_config(batch_size=args.batch_size)
-    r = run(cfg, args.steps, args.warmup, args.batch_size, args.batches)
+    r = run(cfg, args.steps, args.batch_size)
     out = {k: r[k] for k in ("steps", "batch_size", "frames_per_s", "wall_s",
                              "step_ms_median", "step_ms_p90", "peak_mem_gb",
                              "skipped")}

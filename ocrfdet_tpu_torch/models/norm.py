@@ -1,15 +1,17 @@
 """BatchNorm with flax's running statistics.
 
-In train mode `torch.nn.BatchNorm*d` normalises with the biased batch
-variance but moves `running_var` toward the *unbiased* one (times
-n/(n-1)); flax's `BatchNorm` (momentum 0.9, torch's 0.1) moves it toward
-the biased one. `BatchNorm1d` / `BatchNorm2d` here keep torch's
-normalisation and update and undo the factor: running_var is multiplied
-by n/(n-1) before torch's update and divided after it, which leaves
-(1 - m) running_var + m biased_var. In eval they are torch's.
-
-With one value per channel (a pooled input at batch 1) torch refuses
-to train; flax normalises with a zero variance, and so do these.
+In train mode `torch.nn.BatchNorm*d` moves `running_var` toward the
+*unbiased* batch variance (times n/(n-1)); flax's `BatchNorm` (momentum
+0.9, torch's 0.1) moves it toward the biased one. In train mode the
+modules here normalise with the batch statistics and then, unless
+frozen, move the running statistics toward the biased ones:
+running = (1 - m) running + m batch. `BatchNorm2d` normalises through
+`torch._batch_norm_impl_index`, the op behind `F.batch_norm` (cuDNN
+where it applies), called with no running statistics: it also returns
+the batch mean and 1 / sqrt(var + eps). `BatchNorm1d`, and a
+`BatchNorm2d` with one value per channel (a pooled input at batch 1),
+where torch's module refuses to train, compute flax's own formula, which
+there normalises with a zero variance. In eval they are torch's.
 
 `frozen_stats()` stops the update (the batch statistics still
 normalise): the recomputation of a checkpointed block in the backward
@@ -22,7 +24,6 @@ import contextlib
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 _update = [True]
 
@@ -39,44 +40,41 @@ def frozen_stats():
         _update[0] = prev
 
 
-def _flax_train_forward(bn, x):
-    """flax's train-mode BatchNorm written out: statistics over every
-    axis but 1, var = max(E[x^2] - E[x]^2, 0), running statistics moved
-    toward them (unless frozen)."""
-    dims = [d for d in range(x.dim()) if d != 1]
-    shape = [1] * x.dim()
-    shape[1] = x.shape[1]
-    mean = x.mean(dims)
-    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
-    if _update[0]:
-        with torch.no_grad():
-            m = bn.momentum
-            bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
-            bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
-    return ((x - mean.view(shape)) * torch.rsqrt(var.view(shape) + bn.eps)
-            * bn.weight.view(shape) + bn.bias.view(shape))
+@torch.no_grad()
+def _update_running(bn, mean, var):
+    """Move bn's running statistics toward the batch's (biased) mean and
+    variance, unless frozen."""
+    if not _update[0]:
+        return
+    m = bn.momentum
+    bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+    bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+    bn.num_batches_tracked.add_(1)
 
 
 class _FlaxRunningStats:
+    flax_formula = False
+
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        if x.numel() == x.shape[1]:
-            # one value per channel: torch refuses, flax normalises with
-            # a zero variance
-            return _flax_train_forward(self, x)
-        if not _update[0]:
-            # the same op as the update below (a checkpoint's
-            # recomputation must save the same tensors), momentum 0
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, True, 0.0, self.eps)
-        n = x.numel() // x.shape[1]
-        k = n / (n - 1) if n > 1 else 1.0
-        # through .data: autograd records running_var as an input of the
-        # op, which a train-mode backward never reads
-        self.running_var.data.mul_(k)
-        y = super().forward(x)
-        self.running_var.data.div_(k)
+        if self.flax_formula or x.numel() == x.shape[1]:
+            # flax's formula; with one value per channel it gives exactly
+            # the bias, as flax does
+            dims = [d for d in range(x.dim()) if d != 1]
+            shape = [1] * x.dim()
+            shape[1] = x.shape[1]
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            y = ((x - mean.view(shape)) * torch.rsqrt(var.view(shape)
+                                                      + self.eps)
+                 * self.weight.view(shape) + self.bias.view(shape))
+        else:
+            y, mean, invstd, _, _ = torch._batch_norm_impl_index(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps,
+                torch.backends.cudnn.enabled)
+            var = torch.clamp(invstd.pow(-2) - self.eps, min=0.0)
+        _update_running(self, mean, var)
         return y
 
 
@@ -85,11 +83,7 @@ class BatchNorm1d(_FlaxRunningStats, nn.BatchNorm1d):
     var = max(E[x^2] - E[x]^2, 0) (the camera-parameter input has
     near-constant columns, where eps dominates and the two formulas'
     rounding would differ visibly); it is a 27-wide op."""
-
-    def forward(self, x):
-        if not self.training:
-            return super().forward(x)
-        return _flax_train_forward(self, x)
+    flax_formula = True
 
 
 class BatchNorm2d(_FlaxRunningStats, nn.BatchNorm2d):

@@ -120,6 +120,41 @@ class AdamW:
         return self.m + self.v
 
 
+class Optimizer:
+    """The JAX package's `make_optimizer`: the global-norm clip over every
+    trainable parameter, then AdamW per group at the group's learning
+    rate (`lr_at`, times `render_mult_at` for the render group). The
+    frozen group gets no gradient and no optimizer state."""
+
+    def __init__(self, cfg: OptimConfig, named_params, steps_per_epoch: int):
+        self.cfg, self.steps_per_epoch = cfg, steps_per_epoch
+        groups = param_groups(named_params)
+        for _, p in groups["frozen"]:
+            p.requires_grad_(False)
+        self.names = {k: [n for n, _ in v] for k, v in groups.items()}
+        self.groups = {k: AdamW([p for _, p in groups[k]], cfg.weight_decay)
+                       for k in ("render", "other")}
+
+    def params(self) -> List[torch.Tensor]:
+        """The trainable parameters, render group first."""
+        return self.groups["render"].params + self.groups["other"].params
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        return [t for g in self.groups.values() for t in g.state_tensors()]
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], count: int) -> None:
+        """One update of `params()` from `grads` (in that order, clipped
+        in place); `count` is the number of earlier updates."""
+        clip_by_global_norm(grads, self.cfg.grad_clip_norm)
+        n = len(self.groups["render"].params)
+        lr = lr_at(self.cfg, count)
+        mult = render_mult_at(self.cfg, count, self.steps_per_epoch)
+        self.groups["render"].update(grads[:n], count,
+                                     float(np.float32(lr) * np.float32(mult)))
+        self.groups["other"].update(grads[n:], count, lr)
+
+
 class EMA:
     """EMA copies (fp32) of `tensors`, updated toward their values."""
 

@@ -21,7 +21,7 @@ nothing.) The state is updated in place.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict
 
 import numpy as np
 import torch
@@ -29,8 +29,7 @@ import torch
 from ..config import OcRFDetConfig
 from ..models.detector import OcRFDet
 from ..models.norm import BatchNorm1d, BatchNorm2d
-from .optim import (EMA, AdamW, clip_by_global_norm, ema_decay, lr_at,
-                    param_groups, render_mult_at)
+from .optim import EMA, Optimizer, ema_decay
 from .trainstep import compute_losses, total_loss
 
 
@@ -42,20 +41,12 @@ class TrainState:
                  steps_per_epoch: int = 100, seed: int = 0):
         self.cfg = cfg
         self.model = model.train()
-        self.steps_per_epoch = steps_per_epoch
         self.step = 0
         dev = next(model.parameters()).device
         self.generator = torch.Generator(device=dev).manual_seed(seed + 17)
         model.set_dropout_generator(self.generator)
-        groups = param_groups(model.named_parameters())
-        self.frozen = [p for _, p in groups["frozen"]]
-        for p in self.frozen:
-            p.requires_grad_(False)
-        self.names = {k: [n for n, _ in v] for k, v in groups.items()}
-        self.params = {k: [p for _, p in v] for k, v in groups.items()
-                       if k != "frozen"}
-        wd = cfg.optim.weight_decay
-        self.opt = {k: AdamW(v, wd) for k, v in self.params.items()}
+        self.optimizer = Optimizer(cfg.optim, model.named_parameters(),
+                                   steps_per_epoch)
         bns = [(n, m) for n, m in model.named_modules()
                if isinstance(m, (BatchNorm1d, BatchNorm2d))]
         # the BatchNorm buffers a skipped step restores
@@ -63,13 +54,11 @@ class TrainState:
                            (m.running_mean, m.running_var,
                             m.num_batches_tracked)]
         self.bn_snapshot = [t.clone() for t in self.bn_buffers]
+        frozen = set(self.optimizer.names["frozen"])
         self.ema_params = EMA({n: p for n, p in model.named_parameters()
-                               if n not in self.names["frozen"]})
+                               if n not in frozen})
         self.ema_stats = EMA({f"{n}.{k}": getattr(m, k) for n, m in bns
                               for k in ("running_mean", "running_var")})
-
-    def all_params(self) -> List[torch.Tensor]:
-        return self.params["render"] + self.params["other"]
 
 
 def train_step(state: TrainState, batch: Dict) -> Dict[str, float]:
@@ -77,7 +66,7 @@ def train_step(state: TrainState, batch: Dict) -> Dict[str, float]:
     `entry.make_batch(..., with_targets=True)`). Returns the loss dict,
     `loss_total` and `skipped_nonfinite` (0.0 or 1.0) as floats."""
     cfg, model = state.cfg, state.model
-    params = state.all_params()
+    params = state.optimizer.params()
     for p in params:
         p.grad = None
     torch._foreach_copy_(state.bn_snapshot, state.bn_buffers)
@@ -100,15 +89,8 @@ def train_step(state: TrainState, batch: Dict) -> Dict[str, float]:
         for p in params:
             p.grad = None
         return metrics
-    clip_by_global_norm(grads, cfg.optim.grad_clip_norm)
-    n_render = len(state.params["render"])
-    step = state.step
-    lr = lr_at(cfg.optim, step)
-    mult = render_mult_at(cfg.optim, step, state.steps_per_epoch)
-    state.opt["render"].update(grads[:n_render], step,
-                               float(np.float32(lr) * np.float32(mult)))
-    state.opt["other"].update(grads[n_render:], step, lr)
-    d = ema_decay(cfg.optim, step)
+    state.optimizer.update(grads, state.step)
+    d = ema_decay(cfg.optim, state.step)
     state.ema_params.update(d)
     state.ema_stats.update(d)
     state.step += 1

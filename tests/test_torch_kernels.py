@@ -22,6 +22,11 @@ chunks but in another order inside a chunk: rtol 1e-4, atol 1e-5 of
 each output's scale (the tolerance of tests/test_splat.py for the Pallas
 kernel against the XLA compositor); the median depth must agree on every
 pixel but where T crosses 0.5 within rounding (at most 1 in 10^4).
+
+Also on the card: train-mode BatchNorm's output and running statistics,
+and the fp32 flagship training step check of chip_smoke.py, which must
+fail when a fault is put into a backward wrapper (run from the
+repository's root, so that `chip_smoke` imports).
 """
 import numpy as np
 import pytest
@@ -415,3 +420,64 @@ def test_tiny_training_step_through_the_kernels(dev):
         2, 2, 1, 2, 1, 2, 1, 1, 1]
     assert metrics["skipped_nonfinite"] == 0.0 and state.step == 1
     assert all(np.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_batchnorm_statistics_on_the_card(dev, dtype, channels_last):
+    """Train-mode BatchNorm (models/norm.py, through cuDNN where it
+    applies) normalises as F.batch_norm does, bit for bit, and moves its
+    running statistics toward the biased batch statistics (flax)."""
+    import torch.nn.functional as F
+    from ocrfdet_tpu_torch.models.norm import BatchNorm2d
+    g = torch.Generator(device=dev).manual_seed(0)
+    bn = BatchNorm2d(64, eps=1e-5).to(dev).train()
+    x = (3 * torch.randn((6, 64, 32, 44), generator=g, device=dev)
+         + 1).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    y = bn(x)
+    var, mean = torch.var_mean(x.float(), (0, 2, 3), correction=0)
+    torch.testing.assert_close(
+        y, F.batch_norm(x, None, None, bn.weight, bn.bias, True, 0.0, 1e-5),
+        rtol=0, atol=0)
+    torch.testing.assert_close(bn.running_mean, 0.1 * mean, rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(bn.running_var, 0.9 + 0.1 * var, rtol=1e-5,
+                               atol=1e-6)
+
+
+def _faults():
+    def wrap(mod, attr, change):
+        f = getattr(mod, attr)
+        return mod, attr, lambda *a, **k: change(f(*a, **k))
+    return {
+        "K3 ddep x0.5": wrap(htp, "ht_pool_points_backward",
+                             lambda r: (0.5 * r[0], r[1])),
+        "K3 dctx = 0": wrap(htp, "ht_pool_points_backward",
+                            lambda r: (r[0], torch.zeros_like(r[1]))),
+        "K2 dw = 0": wrap(bp, "bev_pool_points_backward",
+                          lambda r: (torch.zeros_like(r[0]), r[1])),
+        "K4 dmap x0.9": wrap(ps, "point_sample_points_backward",
+                             lambda r: 0.9 * r),
+        "K5 dattrs x0.9": wrap(ct, "composite_backward", lambda r: 0.9 * r)}
+
+
+@pytest.mark.parametrize("fault", ["K3 ddep x0.5", "K3 dctx = 0",
+                                   "K2 dw = 0", "K4 dmap x0.9",
+                                   "K5 dattrs x0.9"])
+def test_fp32_step_check_catches_backward_faults(dev, fault):
+    """chip_smoke.py's fp32 flagship step check (K2-K5 against their
+    plain versions, to the kernels' run-to-run floor) fails when a
+    backward wrapper is wrong: the fault is put into the wrapper at run
+    time. Prints what the check reported."""
+    from unittest import mock
+
+    import chip_smoke
+    ks = [cvm.KERNEL, bp.KERNEL, bp.BWD_KERNEL, htp.KERNEL, htp.BWD_KERNEL,
+          ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL, ct.BWD_KERNEL]
+    mod, attr, faulty = _faults()[fault]
+    with mock.patch.object(mod, attr, faulty), \
+            pytest.raises(AssertionError, match="fp32 step") as err:
+        chip_smoke.check_fp32_step(dev, ks)
+    print(f"{fault}: {err.value}")

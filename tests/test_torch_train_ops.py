@@ -493,3 +493,74 @@ def test_optimizer_groups_and_schedules_match_jax():
             mult(jnp.int32(step)))
         assert toptim.ema_decay(cfg, step) == float(
             joptim.ema_decay(jcfg, jnp.int32(step)))
+
+
+def test_optimizer_and_ema_updates_match_optax():
+    """Six updates of train/optim.py's Optimizer (global-norm clip, AdamW
+    per group) and EMA against the JAX package's `make_optimizer` (optax)
+    and `ema_update`, on a tree with render and other parameters, from
+    the same parameters and gradients: through the warm-up (3 steps) and
+    two render-lr decays (2 steps per epoch), with gradient norms above
+    and below the clip. lr 1e-2 (warm-up from 1e-3), so an update is
+    1e-3 to 1e-2 of a parameter,
+    and the EMA decay about 0.3 (ema_init_updates 700), so that a wrong
+    rate, group, sign, clip or decay moves the result far beyond rtol
+    1e-6 (about 8 fp32 roundings) plus 1e-8 (1e-6 of the rate, for
+    entries that an update brought near zero)."""
+    import dataclasses
+    import optax
+    from ocrfdet_tpu.train import optim as joptim
+    from ocrfdet_tpu_torch.train import optim as toptim
+    over = dict(lr=1e-2, warmup_iters=3, warmup_ratio=0.1,
+                ema_init_updates=700)
+    jcfg = dataclasses.replace(jconfig.ocrfdet_config().optim, **over)
+    cfg = dataclasses.replace(tconfig.ocrfdet_config().optim, **over)
+    shapes = {"img_backbone.conv.kernel": (3, 3, 4, 6),
+              "img_backbone.conv.bias": (6,),
+              "img_view_transformer.S_MLP.Dense_0.kernel": (8, 5),
+              "img_view_transformer.sigma.kernel": (4, 1),
+              "img_view_transformer.height_w": (13,)}
+    rng = np.random.default_rng(11)
+    p0 = {k: rng.standard_normal(s).astype(np.float32)
+          for k, s in shapes.items()}
+
+    def tree(flat):
+        out = {}
+        for k, v in flat.items():
+            *path, leaf = k.split(".")
+            d = out
+            for part in path:
+                d = d.setdefault(part, {})
+            d[leaf] = jnp.asarray(v)
+        return out
+
+    def unflat(t):
+        return {k: np.asarray(functools.reduce(lambda d, p: d[p],
+                                               k.split("."), t))
+                for k in shapes}
+    jp = tree(p0)
+    tx = joptim.make_optimizer(jcfg, jp, steps_per_epoch=2)
+    jstate, jema = tx.init(jp), joptim.ema_init_tree(jp)
+    tp = {k: torch.tensor(v) for k, v in p0.items()}
+    opt = toptim.Optimizer(cfg, list(tp.items()), steps_per_epoch=2)
+    assert set(opt.names["render"]) == {
+        "img_view_transformer.S_MLP.Dense_0.kernel",
+        "img_view_transformer.sigma.kernel"}
+    ema = toptim.EMA(tp)
+    order = opt.names["render"] + opt.names["other"]
+    for step, scale in enumerate((20.0, 0.01, 1.0, 50.0, 0.3, 5.0)):
+        g = {k: (scale * rng.standard_normal(s)).astype(np.float32)
+             for k, s in shapes.items()}
+        updates, jstate = tx.update(tree(g), jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        jema = joptim.ema_update(jcfg, jema, jp, jnp.int32(step))
+        opt.update([torch.tensor(g[k]) for k in order], step)
+        ema.update(toptim.ema_decay(cfg, step))
+        want_p, want_e = unflat(jp), unflat(jema)
+        for k in shapes:
+            _close(tp[k], want_p[k], rtol=1e-6, atol=1e-8,
+                   msg=f"step {step} {k}")
+            _close(ema.as_dict()[k], want_e[k], rtol=1e-6, atol=1e-8,
+                   msg=f"step {step} ema {k}")
+        moved = max(float(np.abs(want_p[k] - p0[k]).max()) for k in shapes)
+        assert moved > 5e-4 * (step + 1)
