@@ -8,10 +8,14 @@ Phases, each printing a line:
   2. build: compile the CUDA kernels from ocrfdet_tpu_torch/csrc/ (one
      nvcc per source, all at once) and the host NMS library;
   3. K1 (stereo cost volume), K2 (BEV pool), K3 (HT pool) and K4 (voxel
-     point sample) at flagship shapes, each kernel vs its plain version,
-     and the backward kernels of K2, K3 and K4 at the training step's
-     shapes (batch 2) on random cotangents, each vs its plain version's
-     autograd;
+     point sample) at flagship shapes, at the eval path's batch 1 and the
+     training step's batch 2, each kernel vs its plain version (K1 also
+     counts the tap rows it loads with its load-counting build, which
+     must equal its design's rule; K2 times its preparation and its
+     kernel apart, prints its longest cell interval and must give the
+     same bits on two runs), and the backward kernels of K2, K3 and K4 at
+     the training step's shapes (batch 2) on random cotangents, each vs
+     its plain version's autograd;
   4. the BEVDepth slice (`ocrfdet_config(batch_size=1,
      with_ocrf=False)`) through `entry.infer` on a window of 30 requests
      after warm-up (2 K1 + 2 K2 launches per request), then one request
@@ -32,12 +36,14 @@ Phases, each printing a line:
   7. K5 forward and backward on those recorded flagship streams vs its
      plain version;
   8. one fp32 step at batch 1 from the same weights and batch with the
-     kernels (three times: their atomics set a noise floor), with the
-     plain versions, with K2-K5 plain and K1's kernel, with each kernel
-     alone plain, and with K1 jittered by one rounding: losses,
-     per-module gradient norms, gradient difference;
+     kernels (three times), with the plain versions, with K2-K5 plain and
+     K1's kernel, with each kernel alone plain, and with K1 and with K2
+     jittered by one rounding (the kernels' runs and K2 jittered with
+     three seeds set the noise floor): losses, per-module gradient norms,
+     gradient difference;
   9. one JSON line describing every kernel (launches from the training
-     window), the card's name and power limit, and last
+     window; forwards timed at batch 1 with their batch-2 times under
+     `*_b2`), the card's name and power limit, and last
      `{"ok": true, "device": {...}}`.
 Any failure raises and exits non-zero before the last line. It needs
 CUDA and the repository around it; imports no JAX.
@@ -134,20 +140,46 @@ def plain_grads(fn, args, diff, cot):
     return again(), again
 
 
-def check_k1(cfg, dev):
-    """K1 at flagship shape on post-ReLU stem-like features with the
+def _k1_row_loads(depths, az, bz, a2, b2, H, W):
+    """(in-image taps, row loads) that K1's design implies for these
+    coordinates, worked out on the host with the plain version's
+    coordinate formula: a walk loads a tap's row unless the plane before
+    had the same pixel in the image. The kernel's load-counting build
+    measures the loads themselves (`cost_volume_row_loads`)."""
+    BN = az.shape[0] * az.shape[1]
+    dv = depths[:, None, None]
+    den = dv * az.reshape(1, BN, -1) + bz.reshape(1, BN, 1)
+    front = den >= 1e-3
+    safe = torch.where(front, den, torch.ones_like(den))
+    px = (dv * a2[..., 0].reshape(1, BN, -1) + b2[..., 0].reshape(1, BN, 1)) / safe
+    py = (dv * a2[..., 1].reshape(1, BN, -1) + b2[..., 1].reshape(1, BN, 1)) / safe
+    ids = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi, yi = px.floor() + dx, py.floor() + dy
+            inb = front & (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+            ids.append(torch.where(inb, yi * W + xi, torch.full_like(xi, -1)))
+    ids = torch.stack(ids, 1)                         # [D, 4, BN, HW]
+    inb = ids >= 0
+    held = torch.zeros_like(inb)     # (an out-of-image id, -1, never matches)
+    held[1:] = (ids[1:, :, None] == ids[:-1, None]).any(2)
+    return int(inb.sum()), int((inb & ~held).sum())
+
+
+def _k1_case(cfg, dev, B):
+    """K1 at flagship shape, batch B: post-ReLU stem-like features with the
     frame-1 geometry of make_batch (1 m of ego motion)."""
     from ocrfdet_tpu_torch.entry import make_batch
     from ocrfdet_tpu_torch.geometry.frustum import make_frustum
     from ocrfdet_tpu_torch.ops import cost_volume as cvm
 
-    batch = make_batch(cfg, seed=0, device=dev)
+    batch = make_batch(cfg, seed=0, batch_size=B, device=dev)
     H, W = cfg.data.input_size
     ds = cfg.vt.depthnet.cv_downsample
     Hc, Wc, C, N = H // ds, W // ds, 256, cfg.data.num_cams
     g = torch.Generator(device=dev).manual_seed(0)
-    curr = torch.randn((1, N, Hc, Wc, C), generator=g, device=dev).relu_()
-    prev = torch.randn((1, N, Hc, Wc, C), generator=g, device=dev).relu_()
+    curr = torch.randn((B, N, Hc, Wc, C), generator=g, device=dev).relu_()
+    prev = torch.randn((B, N, Hc, Wc, C), generator=g, device=dev).relu_()
     prev = prev.to(torch.bfloat16)    # the main path's prev is a bf16 stem
     frustum = torch.from_numpy(make_frustum(cfg.grid.depth, (H, W),
                                             ds)).to(dev)
@@ -168,209 +200,58 @@ def check_k1(cfg, dev):
     max_rel = float((diff / want.abs().clamp_min(1e-6)).max())
     # tolerance: another channel-sum order only (the coordinates round
     # identically, so no flag may flip)
-    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-3))
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-3)) and flips == 0
     ms = device_ms(lambda: cvm.cost_volume(*args), reps=20)
     plain_ms = device_ms(lambda: cvm.cost_volume_plain(*args), reps=2)
     # the work this data needs: 2 flops per channel per in-image tap,
     # 3 per channel per sample (sub, abs, add)
-    den = depths[None, :, None] * az.reshape(N, 1, -1) + bz.reshape(N, 1, 1)
-    front = den >= 1e-3
-    safe = torch.where(front, den, torch.ones_like(den))
-    px = (depths[None, :, None] * a2[..., 0].reshape(N, 1, -1)
-          + b2[..., 0].reshape(N, 1, 1)) / safe
-    py = (depths[None, :, None] * a2[..., 1].reshape(N, 1, -1)
-          + b2[..., 1].reshape(N, 1, 1)) / safe
-    taps = 0
-    for dy in (0, 1):
-        for dx in (0, 1):
-            xi, yi = px.floor() + dx, py.floor() + dy
-            taps += int((front & (xi >= 0) & (xi <= Wc - 1) & (yi >= 0)
-                         & (yi <= Hc - 1)).sum())
+    taps, model = _k1_row_loads(depths, az, bz, a2, b2, Hc, Wc)
+    loads = cvm.cost_volume_row_loads(*args)
     samples = want.numel()
     flops = C * (2 * taps + 3 * samples)
     coef_bytes = (az.numel() + a2.numel() + bz.numel() + b2.numel()) * 4
     moved = nbytes(curr, prev, depths, want) + coef_bytes
     bound_ms, bound_by = bound(moved, flops)
-    log(f"[k1] cost_volume {tuple(got.shape)}: max_abs_err {max_abs:.3e} "
-        f"max_rel_err {max_rel:.3e} flag_flips {flips} (tol rtol 1e-5 "
-        f"atol 1e-3: {'ok' if ok else 'FAIL'}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-        f"({moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, "
-        f"{taps / samples:.3f} in-image taps per sample)")
+    log(f"[k1] cost_volume batch {B} {tuple(got.shape)}: max_abs_err "
+        f"{max_abs:.3e} max_rel_err {max_rel:.3e} flag_flips {flips} (tol "
+        f"rtol 1e-5 atol 1e-3, 0 flips: {'ok' if ok else 'FAIL'}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); per "
+        f"sample {taps / samples:.3f} in-image taps, {loads / samples:.3f} "
+        f"row loads counted by the kernel's load-counting build "
+        f"({model / samples:.3f} by the design's rule on the host: "
+        f"{'equal' if loads == model else 'DIFFERENT'})")
     if not ok:
-        raise AssertionError("K1 kernel disagrees with its plain version")
+        raise AssertionError(f"K1 kernel disagrees with its plain version "
+                             f"at batch {B}")
+    if loads != model:
+        raise AssertionError(f"K1 loaded {loads} tap rows at batch {B}, its "
+                             f"design {model}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                row_loads_per_sample=loads / samples)
 
 
-def check_k2(cfg, dev):
-    """K2 at flagship shape: the key frame's frustum over the BEV grid,
-    softmaxed random depth, random context."""
-    from ocrfdet_tpu_torch.entry import make_batch
-    from ocrfdet_tpu_torch.geometry import frustum as FR
-    from ocrfdet_tpu_torch.ops import bev_pool as bp
-
-    batch = make_batch(cfg, seed=0, device=dev)
-    grid = cfg.grid
-    H, W = cfg.data.input_size
-    frustum = torch.from_numpy(FR.make_frustum(grid.depth, (H, W),
-                                               cfg.vt.downsample)).to(dev)
-    coor = FR.frustum_to_ego(frustum, batch["rots"][:, 0],
-                             batch["trans"][:, 0], batch["intrins"][:, 0],
-                             batch["post_rots"][:, 0],
-                             batch["post_trans"][:, 0], batch["bda"])
-    X, Y = grid.bev_size
-    vox, valid = FR.voxel_indices(coor, (grid.x[0], grid.y[0], grid.z[0]),
-                                  (grid.x[2], grid.y[2], grid.z[2]),
-                                  (X, Y, 1))
-    D, fH, fW = frustum.shape[:3]
-    N, C = cfg.data.num_cams, cfg.vt.out_channels
-    g = torch.Generator(device=dev).manual_seed(1)
-    depth = torch.randn((1, N, D, fH, fW), generator=g,
-                        device=dev).softmax(2)
-    feat = torch.randn((1, N, fH, fW, C), generator=g, device=dev)
-    w, pix, cell, featp, cells = bp.lss_points(depth, feat, vox, valid,
-                                               (X, Y, 1))
-    got = bp.bev_pool_points(w, pix, cell, featp, cells)
-    want = bp.bev_pool_points_plain(w, pix, cell, featp, cells)
-    torch.cuda.synchronize()
-    max_abs = float((got - want).abs().max())
-    # atomics reorder fp32 sums: rtol 1e-5 / atol 1e-5
-    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
-    ms = device_ms(lambda: bp.bev_pool_points(w, pix, cell, featp, cells),
-                 reps=50)
-    plain_ms = device_ms(
-        lambda: bp.bev_pool_points_plain(w, pix, cell, featp, cells), reps=10)
-    # yardstick: one index_add_ of the precomputed weighted rows
-    keep = cell[0] < cells
-    rows = featp[0, pix[0, keep].long()] * w[0, keep, None]
-    idx = cell[0, keep].long()
-    acc = torch.zeros((cells, C), device=dev)
-    library_ms = device_ms(lambda: acc.index_add_(0, idx, rows), reps=50)
-    n_valid = int(keep.sum())
-    moved = nbytes(w, pix, cell, featp, want)
-    bound_ms, bound_by = bound(moved, 2 * C * n_valid)
-    log(f"[k2] bev_pool {tuple(got.shape)}: max_abs_err {max_abs:.3e} "
-        f"(tol rtol 1e-5 atol 1e-5: {'ok' if ok else 'FAIL'}); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} "
-        f"ms; bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB, "
-        f"{n_valid} of {w.numel()} points in the grid)")
-    if not ok:
-        raise AssertionError("K2 kernel disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+def with_b2(b1, b2, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
+    """A kernel's batch-1 stats with its batch-2 times under `<key>_b2`."""
+    out = dict(b1)
+    out["max_abs_err"] = max(b1["max_abs_err"], b2["max_abs_err"])
+    out.update({f"{k}_b2": b2[k] for k in keys})
+    return out
 
 
-def flagship_projection(cfg, dev):
-    """The key frame's HT projection (uvd, valid) of make_batch."""
-    from ocrfdet_tpu_torch.entry import make_batch
-    from ocrfdet_tpu_torch.geometry import frustum as FR
-
-    batch = make_batch(cfg, seed=0, device=dev)
-    grid, vt = cfg.grid, cfg.vt
-    cams = [batch[k][:, 0] for k in ("rots", "trans", "intrins",
-                                     "post_rots", "post_trans")]
-    l2i, aug = FR.ego_to_image(*cams, batch["bda"])
-    ref = torch.from_numpy(FR.ht_reference_points(
-        vt.bev_h, vt.bev_w, vt.num_height,
-        z_pillar=grid.z[1] - grid.z[0])).to(dev)
-    return FR.project_points(ref, grid.pc_range, (grid.depth[0],
-                                                  grid.depth[1]),
-                             l2i, aug, cfg.data.input_size)
+def check_k1(cfg, dev):
+    """K1 at the eval path's batch 1 and the training step's batch 2 (the
+    12-volume stack)."""
+    b1, b2 = _k1_case(cfg, dev, 1), _k1_case(cfg, dev, 2)
+    return with_b2(b1, b2, ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "row_loads_per_sample"))
 
 
-def check_k3(cfg, dev):
-    """K3 at flagship shape: the key frame's projection, thresholded
-    softmax depth, random context."""
-    from ocrfdet_tpu_torch.ops import ht_pool as htp
-
-    uvd, valid = flagship_projection(cfg, dev)
-    N, D, C = cfg.data.num_cams, cfg.grid.num_depth_bins, cfg.vt.out_channels
-    h = cfg.data.input_size[0] // cfg.vt.downsample
-    w = cfg.data.input_size[1] // cfg.vt.downsample
-    g = torch.Generator(device=dev).manual_seed(2)
-    depth = torch.randn((1, N, h, w, D), generator=g, device=dev).softmax(-1)
-    depth = torch.where(depth < cfg.vt.depth_threshold / D,
-                        torch.zeros_like(depth), depth)
-    ctx = torch.randn((1, N, h, w, C), generator=g, device=dev)
-    args = htp.ht_pool_inputs(depth, ctx, uvd, valid)
-    got = htp.ht_pool_points(*args)
-    want = htp.ht_pool_points_plain(*args)
-    torch.cuda.synchronize()
-    max_abs = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    # the plain version sums the heights in its own order: rtol 1e-5,
-    # atol 1e-5 of the output scale
-    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale))
-    ms = device_ms(lambda: htp.ht_pool_points(*args), reps=50)
-    plain_ms = device_ms(lambda: htp.ht_pool_points_plain(*args), reps=5)
-    n_valid = int(args[4].sum())
-    moved = nbytes(*args, want)
-    bound_ms, bound_by = bound(moved, n_valid * (2 * C + 1))
-    log(f"[k3] ht_pool {tuple(got.shape)}: max_abs_err {max_abs:.3e} "
-        f"(max |out| {scale:.3f}; tol rtol 1e-5 atol 1e-5 x scale: "
-        f"{'ok' if ok else 'FAIL'}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, no library call; bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({moved / 1e6:.2f} MB, {n_valid} of "
-        f"{args[4].numel()} points valid)")
-    if not ok:
-        raise AssertionError("K3 kernel disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-
-
-def check_k4(cfg, dev):
-    """K4 at flagship shape: random alpha maps at full image resolution
-    (C = 1, as at eval) sampled at the key frame's projected points."""
-    import torch.nn.functional as F
-    from ocrfdet_tpu_torch.ops import point_sample as ps
-
-    uvd, _ = flagship_projection(cfg, dev)
-    N = cfg.data.num_cams
-    H, W = cfg.vt.render_image_size
-    P = uvd.shape[2] * uvd.shape[3]
-    g = torch.Generator(device=dev).manual_seed(3)
-    maps = torch.rand((N, H, W, 1), generator=g, device=dev)
-    px = (uvd[0, ..., 0] * W).reshape(N, P).contiguous()
-    py = (uvd[0, ..., 1] * H).reshape(N, P).contiguous()
-    got = ps.point_sample_points(maps, px, py)
-    want = ps.point_sample_points_plain(maps, px, py)
-    torch.cuda.synchronize()
-    max_abs = float((got - want).abs().max())
-    # the same separately rounded products and sums: rtol 1e-5 / atol 1e-6
-    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
-    ms = device_ms(lambda: ps.point_sample_points(maps, px, py), reps=50)
-    plain_ms = device_ms(lambda: ps.point_sample_points_plain(maps, px, py),
-                       reps=10)
-    # yardstick: one F.grid_sample (align_corners=False: x_n = (2 px +
-    # 1) / W - 1) of the same maps at the same points
-    grid = torch.stack([(2 * px + 1) / W - 1, (2 * py + 1) / H - 1],
-                       -1)[:, None]
-    maps_nchw = maps.permute(0, 3, 1, 2).contiguous()
-
-    def library():
-        return F.grid_sample(maps_nchw, grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=False)
-    lib_err = float((library()[:, 0, 0] - got[..., 0]).abs().max())
-    library_ms = device_ms(library, reps=50)
-    moved = nbytes(maps, px, py, want)
-    # operations: 4 products and 3 sums per output value, ~12 per point
-    # for its tap weights
-    bound_ms, bound_by = bound(moved, 7 * got.numel() + 12 * px.numel())
-    log(f"[k4] point_sample {tuple(got.shape)}: max_abs_err {max_abs:.3e} "
-        f"(tol rtol 1e-5 atol 1e-6: {'ok' if ok else 'FAIL'}); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
-        f"{library_ms:.4f} ms (max |diff| to it {lib_err:.3e}); bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB)")
-    if not ok:
-        raise AssertionError("K4 kernel disagrees with its plain version")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-
-
-
-def _training_pool_inputs(cfg, dev, B=2):
-    """K2's point streams of the key frame at the training batch B."""
+def flagship_pool_inputs(cfg, dev, B, seed):
+    """K2's point streams of the key frame of make_batch at batch B:
+    the frustum over the BEV grid, softmaxed random depth, random
+    context."""
     from ocrfdet_tpu_torch.entry import make_batch
     from ocrfdet_tpu_torch.geometry import frustum as FR
     from ocrfdet_tpu_torch.ops import bev_pool as bp
@@ -390,11 +271,193 @@ def _training_pool_inputs(cfg, dev, B=2):
                                   (X, Y, 1))
     D, fH, fW = frustum.shape[:3]
     N, C = cfg.data.num_cams, cfg.vt.out_channels
-    g = torch.Generator(device=dev).manual_seed(11)
+    g = torch.Generator(device=dev).manual_seed(seed)
     depth = torch.randn((B, N, D, fH, fW), generator=g,
                         device=dev).softmax(2)
     feat = torch.randn((B, N, fH, fW, C), generator=g, device=dev)
     return bp.lss_points(depth, feat, vox, valid, (X, Y, 1))
+
+
+def _k2_case(cfg, dev, B):
+    """K2's forward at flagship shape, batch B: preparation (the sort into
+    cell intervals) and kernel timed apart and together, run-to-run
+    bitwise equality, the longest interval."""
+    from ocrfdet_tpu_torch.ops import bev_pool as bp
+
+    w, pix, cell, featp, cells = flagship_pool_inputs(cfg, dev, B, seed=1)
+    C = featp.shape[-1]
+    got = bp.bev_pool_points(w, pix, cell, featp, cells)
+    again = bp.bev_pool_points(w, pix, cell, featp, cells)
+    want = bp.bev_pool_points_plain(w, pix, cell, featp, cells)
+    intervals = bp.cell_intervals(cell, cells)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    same = bool(torch.equal(got, again))
+    # another fp32 sum order than index_add_'s: rtol 1e-5 / atol 1e-5
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5)) and same
+    offsets = intervals[1]
+    lengths = (offsets[1:] - offsets[:-1]).reshape(B, cells + 1)[:, :cells]
+    longest = int(lengths.max())
+    ms = device_ms(lambda: bp.bev_pool_points(w, pix, cell, featp, cells),
+                   reps=50)
+    prep_ms = device_ms(lambda: bp.cell_intervals(cell, cells), reps=50)
+    kernel_ms = device_ms(lambda: bp.bev_pool_forward(
+        w, pix, cell, featp, cells, *intervals), reps=50)
+    plain_ms = device_ms(
+        lambda: bp.bev_pool_points_plain(w, pix, cell, featp, cells), reps=10)
+    # yardstick: one index_add_ of the precomputed weighted rows
+    keep = cell < cells
+    bidx = torch.arange(B, device=dev)[:, None].expand_as(cell)[keep]
+    rows = featp[bidx, pix[keep].long()] * w[keep][:, None]
+    idx = bidx * cells + cell[keep].long()
+    acc = torch.zeros((B * cells, C), device=dev)
+    library_ms = device_ms(lambda: acc.index_add_(0, idx, rows), reps=50)
+    n_valid = int(keep.sum())
+    moved = nbytes(w, pix, cell, featp, want)
+    bound_ms, bound_by = bound(moved, 2 * C * n_valid)
+    log(f"[k2] bev_pool batch {B} {tuple(got.shape)}: max_abs_err "
+        f"{max_abs:.3e} (tol rtol 1e-5 atol 1e-5), run to run "
+        f"{'bitwise equal' if same else 'DIFFERENT'}: "
+        f"{'ok' if ok else 'FAIL'}; preparation + kernel {ms:.4f} ms "
+        f"(preparation {prep_ms:.4f} ms, kernel {kernel_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB, {n_valid} "
+        f"of {w.numel()} points in the grid, longest cell interval "
+        f"{longest} points)")
+    if not ok:
+        raise AssertionError(f"K2 kernel disagrees with its plain version "
+                             f"or with itself at batch {B}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                prep_ms=prep_ms, kernel_ms=kernel_ms)
+
+
+def check_k2(cfg, dev):
+    """K2's forward at batch 1 and 2."""
+    b1, b2 = _k2_case(cfg, dev, 1), _k2_case(cfg, dev, 2)
+    return with_b2(b1, b2, ("ms", "plain_ms", "bound_ms", "library_ms",
+                            "prep_ms", "kernel_ms"))
+
+
+def flagship_projection(cfg, dev, B=1):
+    """The key frame's HT projection (uvd, valid) of make_batch."""
+    from ocrfdet_tpu_torch.entry import make_batch
+    from ocrfdet_tpu_torch.geometry import frustum as FR
+
+    batch = make_batch(cfg, seed=0, batch_size=B, device=dev)
+    grid, vt = cfg.grid, cfg.vt
+    cams = [batch[k][:, 0] for k in ("rots", "trans", "intrins",
+                                     "post_rots", "post_trans")]
+    l2i, aug = FR.ego_to_image(*cams, batch["bda"])
+    ref = torch.from_numpy(FR.ht_reference_points(
+        vt.bev_h, vt.bev_w, vt.num_height,
+        z_pillar=grid.z[1] - grid.z[0])).to(dev)
+    return FR.project_points(ref, grid.pc_range, (grid.depth[0],
+                                                  grid.depth[1]),
+                             l2i, aug, cfg.data.input_size)
+
+
+def _k3_case(cfg, dev, B):
+    """K3 at flagship shape, batch B: the key frame's projection,
+    thresholded softmax depth, random context."""
+    from ocrfdet_tpu_torch.ops import ht_pool as htp
+
+    uvd, valid = flagship_projection(cfg, dev, B)
+    N, D, C = cfg.data.num_cams, cfg.grid.num_depth_bins, cfg.vt.out_channels
+    h = cfg.data.input_size[0] // cfg.vt.downsample
+    w = cfg.data.input_size[1] // cfg.vt.downsample
+    g = torch.Generator(device=dev).manual_seed(2)
+    depth = torch.randn((B, N, h, w, D), generator=g, device=dev).softmax(-1)
+    depth = torch.where(depth < cfg.vt.depth_threshold / D,
+                        torch.zeros_like(depth), depth)
+    ctx = torch.randn((B, N, h, w, C), generator=g, device=dev)
+    args = htp.ht_pool_inputs(depth, ctx, uvd, valid)
+    got = htp.ht_pool_points(*args)
+    want = htp.ht_pool_points_plain(*args)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    # the plain version sums the heights in its own order: rtol 1e-5,
+    # atol 1e-5 of the output scale
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale))
+    ms = device_ms(lambda: htp.ht_pool_points(*args), reps=50)
+    plain_ms = device_ms(lambda: htp.ht_pool_points_plain(*args), reps=5)
+    n_valid = int(args[4].sum())
+    moved = nbytes(*args, want)
+    bound_ms, bound_by = bound(moved, n_valid * (2 * C + 1))
+    log(f"[k3] ht_pool batch {B} {tuple(got.shape)}: max_abs_err "
+        f"{max_abs:.3e} (max |out| {scale:.3f}; tol rtol 1e-5 atol 1e-5 x "
+        f"scale: {'ok' if ok else 'FAIL'}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, no library call; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({moved / 1e6:.2f} MB, {n_valid} of "
+        f"{args[4].numel()} points valid)")
+    if not ok:
+        raise AssertionError(f"K3 kernel disagrees with its plain version "
+                             f"at batch {B}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def check_k3(cfg, dev):
+    """K3's forward at batch 1 and 2."""
+    return with_b2(_k3_case(cfg, dev, 1), _k3_case(cfg, dev, 2))
+
+
+def _k4_case(cfg, dev, B, C):
+    """K4 at flagship shape: random maps at full image resolution of B x 6
+    cameras with C channels (1 at eval; the training step's key frame
+    samples 4: alpha and RGB) at the key frame's projected points."""
+    import torch.nn.functional as F
+    from ocrfdet_tpu_torch.ops import point_sample as ps
+
+    uvd, _ = flagship_projection(cfg, dev, B)
+    N = cfg.data.num_cams
+    H, W = cfg.vt.render_image_size
+    P = uvd.shape[2] * uvd.shape[3]
+    g = torch.Generator(device=dev).manual_seed(3)
+    maps = torch.rand((B * N, H, W, C), generator=g, device=dev)
+    px = (uvd[..., 0] * W).reshape(B * N, P).contiguous()
+    py = (uvd[..., 1] * H).reshape(B * N, P).contiguous()
+    got = ps.point_sample_points(maps, px, py)
+    want = ps.point_sample_points_plain(maps, px, py)
+    torch.cuda.synchronize()
+    max_abs = float((got - want).abs().max())
+    # the same separately rounded products and sums: rtol 1e-5 / atol 1e-6
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
+    ms = device_ms(lambda: ps.point_sample_points(maps, px, py), reps=50)
+    plain_ms = device_ms(lambda: ps.point_sample_points_plain(maps, px, py),
+                         reps=10)
+    # yardstick: one F.grid_sample (align_corners=False: x_n = (2 px +
+    # 1) / W - 1) of the same maps at the same points
+    grid = torch.stack([(2 * px + 1) / W - 1, (2 * py + 1) / H - 1],
+                       -1)[:, None]
+    maps_nchw = maps.permute(0, 3, 1, 2).contiguous()
+
+    def library():
+        return F.grid_sample(maps_nchw, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=False)
+    lib_err = float((library()[:, :, 0].permute(0, 2, 1) - got).abs().max())
+    library_ms = device_ms(library, reps=50)
+    moved = nbytes(maps, px, py, want)
+    # operations: 4 products and 3 sums per output value, ~12 per point
+    # for its tap weights
+    bound_ms, bound_by = bound(moved, 7 * got.numel() + 12 * px.numel())
+    log(f"[k4] point_sample batch {B} C={C} {tuple(got.shape)}: max_abs_err "
+        f"{max_abs:.3e} (tol rtol 1e-5 atol 1e-6: {'ok' if ok else 'FAIL'}); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
+        f"{library_ms:.4f} ms (max |diff| to it {lib_err:.3e}); bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB)")
+    if not ok:
+        raise AssertionError(f"K4 kernel disagrees with its plain version "
+                             f"at batch {B}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def check_k4(cfg, dev):
+    """K4's forward at eval's batch 1 (C = 1) and at the training key
+    frame's batch 2 (C = 4)."""
+    return with_b2(_k4_case(cfg, dev, 1, 1), _k4_case(cfg, dev, 2, 4))
 
 
 def check_k2_bwd(cfg, dev):
@@ -402,7 +465,7 @@ def check_k2_bwd(cfg, dev):
     cotangent, vs the plain version's autograd."""
     from ocrfdet_tpu_torch.ops import bev_pool as bp
 
-    w, pix, cell, featp, cells = _training_pool_inputs(cfg, dev)
+    w, pix, cell, featp, cells = flagship_pool_inputs(cfg, dev, 2, seed=11)
     B, C = w.shape[0], featp.shape[-1]
     gen = torch.Generator(device=dev).manual_seed(12)
     cot = torch.randn((B, cells, C), generator=gen, device=dev)
@@ -691,11 +754,12 @@ def _module_of(name: str) -> str:
 def check_fp32_step(dev, all_kernels):
     """One fp32 training step's losses and gradients at batch 1, from the
     same weights, batch and dropout masks, by several routes: every
-    kernel (three times: the atomics of K2-K4 add in a varying order,
-    which sets the noise floor), every plain version (no kernel
-    launched), K2-K5 plain with K1's kernel, each kernel alone plain, and
-    K1's kernel jittered (`k1_jittered`: a relative noise of one fp32
-    rounding on its output)."""
+    kernel (three times: the atomics of the K2-K4 backwards add in a
+    varying order), every plain version (no kernel launched), K2-K5 plain
+    with K1's kernel, each kernel alone plain, and K1's and K2's kernels
+    jittered (`jittered`: a relative noise of one fp32 rounding on the
+    output; K2's with three seeds). The three kernel runs set the
+    runs-only floor, they and K2 jittered the noise floor."""
     from ocrfdet_tpu_torch import entry
     from ocrfdet_tpu_torch.config import ocrfdet_config
     from ocrfdet_tpu_torch.models.detector import OcRFDet
@@ -729,7 +793,8 @@ def check_fp32_step(dev, all_kernels):
     P = step(plain_versions())
     S = step(plain_versions(only=KERNEL_NAMES[1:]))
     swap = {x: step(plain_versions(only=[x])) for x in KERNEL_NAMES}
-    J1 = step(k1_jittered(dev))
+    J1 = step(jittered("K1", dev))
+    J2 = {seed: step(jittered("K2", dev, seed)) for seed in JITTER_SEEDS}
     if K[2] == 0 or P[2] != 0 or S[2] != 2:
         raise AssertionError(f"fp32 step: {K[2]} kernel launches with the "
                              f"kernels, {P[2]} with the plain versions, "
@@ -762,8 +827,14 @@ def check_fp32_step(dev, all_kernels):
         return (max(d[0] for d in ds), max(d[1] for d in ds),
                 {m: max(d[2][m] for d in ds) for m in mods},
                 max(d[3] for d in ds))
-    kk = most(diff(K, Ka), diff(K, Kb), diff(Ka, Kb))
+    kr = most(diff(K, Ka), diff(K, Kb), diff(Ka, Kb))
+    kj2 = {seed: diff(K, J) for seed, J in J2.items()}
+    kk = most(kr, *kj2.values())
     ks, kp, kj = diff(K, S), diff(K, P), diff(K, J1)
+    # the modules K2 does not feed: K2's jitter moves their gradients no
+    # more than the kernels' runs do
+    quiet = [m for m in mods
+             if max(d[2][m] for d in kj2.values()) <= 3 * kr[2][m]]
     sw = {x: diff(K, swap[x]) for x in KERNEL_NAMES}
 
     def row(tag, d):
@@ -775,31 +846,43 @@ def check_fp32_step(dev, all_kernels):
     log(f"[fp32-step] batch 1, fp32, every kernel ({K[2]} launches) vs "
         f"other routes: max rel err of the losses, rel L2 of the gradient "
         f"(max |grad| {float(flat_p.abs().max()):.3e}): " + "; ".join(
-            [row("kernels again (floor)", kk),
+            [row("kernels again and K2 jittered (floor)", kk),
+             row("kernels again (runs-only floor)", kr),
              row("K2-K5 plain, K1 kernel", ks), row("all plain", kp),
              row("K1 jittered by one rounding", kj)]
+            + [row(f"K2 jittered by one rounding, seed {seed}", d)
+               for seed, d in kj2.items()]
             + [row(f"{x} alone plain", sw[x]) for x in KERNEL_NAMES]))
     log("[fp32-step] per-module gradient rel L2, K2-K5 plain with K1 "
-        "kernel (kernels again; all plain; K1 jittered): " + ", ".join(
+        "kernel (floor; all plain; K1 jittered): " + ", ".join(
             f"{m} {ks[2][m]:.2e} ({kk[2][m]:.2e}; {kp[2][m]:.2e}; "
             f"{kj[2][m]:.2e})" for m in mods))
+    log("[fp32-step] modules K2's jitter moves no more than the kernels' "
+        "runs, held to the runs-only floor: K2-K5 plain with K1 kernel "
+        "(runs-only floor): " + ", ".join(
+            f"{m} {ks[2][m]:.2e} ({kr[2][m]:.2e})" for m in quiet))
     # tolerance: each kernel differs from its plain version by the order
     # of its fp32 sums. K1 (no backward; held against its plain version
     # at flagship shapes above) feeds the depth net, and this randomly
     # initialised train-mode model at batch 1 amplifies a difference of
-    # one rounding at K1's output to about 1e-2 of the losses and 0.2 of
+    # one rounding at K1's output to about 1e-2 of the losses and 0.1 of
     # the gradient (K1 jittered). So the kernels of the training slice
     # (K2-K5, forward and backward), together and each alone, are held
-    # with K1's kernel in both runs to the floor that three runs of the
-    # kernels set (the largest of their three differences): losses
-    # within 1e-4 or 3x the floor, the gradient within 3x the floor plus
-    # 1e-3 of its norm. Per module (K2-K5 together) it is 3x the floor
-    # plus 5e-2 of the module's norm: a few modules' gradients (the NeRF
-    # alpha head `sigma`: 0.6-1.2% between runs of the same kernels, up
-    # to 4% against K2-K5 plain) move by several times the floor from
-    # call to call, while a mis-wired backward moves a module's gradient
-    # by its own size. K1 alone and all plain are held to 3x what K1's
-    # jitter and the floor move together
+    # with K1's kernel in both runs to the floor of three runs of the
+    # kernels and of K2's output jittered by one rounding with three
+    # seeds (the largest of their differences; K2's forward adds in a
+    # fixed order, so the kernels' runs alone no longer show how far the
+    # model carries one rounding of difference in the pooled features):
+    # losses within 1e-4 or 3x the floor, the gradient within 3x the
+    # floor plus 1e-3 of its norm. Per module (K2-K5 together) it is 3x
+    # the floor plus 5e-2 of the module's norm: a few modules' gradients
+    # (the NeRF alpha head `sigma`: 0.6-1.2% between runs of the same
+    # kernels, up to 4% against K2-K5 plain) move by several times the
+    # floor from call to call, while a mis-wired backward moves a
+    # module's gradient by its own size. The modules that K2's jitter
+    # does not move beyond the runs are held tighter, to 3x the runs-only
+    # floor plus 1e-3 of the module's norm. K1 alone and all plain are
+    # held to 3x what K1's jitter and the floor move together
     bad = []
 
     def within(tag, d, floor, modules=False):
@@ -811,6 +894,8 @@ def check_fp32_step(dev, all_kernels):
             bad.extend(f"{tag} {m} {d[2][m]:.2e}" for m in mods
                        if d[2][m] > 3 * floor[2][m] + 5e-2)
     within("K2-K5 plain", ks, kk, modules=True)
+    bad.extend(f"K2-K5 plain {m} {ks[2][m]:.2e} (runs-only floor)"
+               for m in quiet if ks[2][m] > 3 * kr[2][m] + 1e-3)
     for x in KERNEL_NAMES[1:]:
         within(f"{x} alone plain", sw[x], kk)
     k1_floor = (kj[0] + kk[0], kj[1] + kk[1])
@@ -823,6 +908,7 @@ def check_fp32_step(dev, all_kernels):
 
 
 KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5")
+JITTER_SEEDS = (100, 101, 102)
 
 
 def _kernel_entries():
@@ -868,13 +954,13 @@ class _Jitter(torch.autograd.Function):
 
 
 @contextlib.contextmanager
-def k1_jittered(dev):
-    """K1 with a relative noise of one fp32 rounding (2^-23) times a
-    standard normal on its output."""
-    mod, attr, _ = _kernel_entries()["K1"]
+def jittered(name, dev, seed=JITTER_SEEDS[0]):
+    """Kernel `name`'s wrapper with a relative noise of one fp32 rounding
+    (2^-23) times a standard normal (from `seed`) on its output."""
+    mod, attr, _ = _kernel_entries()[name]
     f = getattr(mod, attr)
     eps = 2.0 ** -23
-    gen = torch.Generator(device=dev).manual_seed(100)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def g(*args):
         return _Jitter.apply(f(*args), eps, gen)
@@ -1056,10 +1142,11 @@ def main() -> int:
     kernel_list = [cvm.KERNEL, bp.KERNEL, bp.BWD_KERNEL, htp.KERNEL,
                    htp.BWD_KERNEL, ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL,
                    ct.BWD_KERNEL]
-    kernels.build(kernel_list)
+    kernels.build(kernel_list + [cvm.ROW_LOADS_KERNEL])
     nms.native_library()
     sources = sorted({k.source for k in kernel_list})
-    log(f"[build] {', '.join(sources)} (nvcc) and nms.cpp (c++) -> "
+    log(f"[build] {', '.join(sources)} and K1's load-counting build of "
+        f"{cvm.ROW_LOADS_KERNEL.source} (nvcc) and nms.cpp (c++) -> "
         f"{kernels.BUILD_DIR.name}/ in {time.perf_counter() - t:.1f} s")
     eval_kernels = [cvm.KERNEL, bp.KERNEL, htp.KERNEL, ps.KERNEL]
 
@@ -1094,10 +1181,13 @@ def main() -> int:
 
     rows = []
     for k in kernel_list:
+        st = dict(stats[k.name])
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            st.setdefault(f"{key}_b2", st[key])   # measured at batch 2
         rows.append(dict(name=k.name, route="cuda",
                          source=f"ocrfdet_tpu_torch/csrc/{k.source}",
                          replaces=k.replaces, launches=launches[k.name],
-                         **stats[k.name]))
+                         **st))
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

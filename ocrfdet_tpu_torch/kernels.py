@@ -8,7 +8,9 @@ the compiler flags, so an edited source is rebuilt and a built one is
 reused. `build()` compiles several sources at once, one `nvcc` process
 each. A source may hold several entry points (a forward and a
 backward); each is its own `Kernel`, with its own launch count, and the
-source is compiled once for all of them.
+source is compiled once for all of them. A `Kernel` with `defines` is
+a variant of its source compiled with those macros (`-D`), into a
+library of its own.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.launch` raises if that is not 0 and
@@ -48,12 +50,14 @@ class Kernel:
     """One CUDA source file, its C entry point and its launch count."""
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence, replaces: str):
+                 argtypes: Sequence, replaces: str,
+                 defines: Sequence[str] = ()):
         self.name = name
         self.source = source          # file name under csrc/
         self.symbol = symbol          # extern "C" entry point
         self.argtypes = list(argtypes)
         self.replaces = replaces      # the Pallas kernel it stands for
+        self.defines = tuple(defines)  # macros of this build of the source
         self.launches = 0
         self._lib = None
 
@@ -61,9 +65,12 @@ class Kernel:
     def source_path(self) -> Path:
         return CSRC / self.source
 
+    def flags(self) -> list:
+        return [*NVCC_FLAGS, *(f"-D{d}" for d in self.defines)]
+
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source_path.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join(self.flags()).encode())
         return BUILD_DIR / f"lib{self.source_path.stem}-{h.hexdigest()[:12]}.so"
 
     def _open(self, path: Path) -> None:
@@ -75,6 +82,16 @@ class Kernel:
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         self._lib = (lib, fn, err)
+
+    def function(self, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
+        """Another extern "C" function of this kernel's library (built
+        and loaded if need be)."""
+        if self._lib is None:
+            build([self])
+        fn = getattr(self._lib[0], symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
 
     def launch(self, *args) -> None:
         """Call the C entry point (which launches the kernel) and count
@@ -103,7 +120,7 @@ def build(kernels: Iterable[Kernel]) -> None:
         for k in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(k.source_path)]
+            cmd = [nvcc, *k.flags(), "-o", tmp, str(k.source_path)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             jobs.append((k, tmp, proc))

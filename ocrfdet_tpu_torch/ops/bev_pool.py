@@ -6,14 +6,17 @@ ocrfdet_tpu/ops/bev_pool.py and ops/bev_pool_pallas.py).
 
 `bev_pool_points` is the wrapper of kernel K2 (`csrc/bev_pool.cu`, the
 counterpart of the Pallas `bev_pool_points` and of the reference's CUDA
-bev_pool_v2): for CUDA tensors it launches the forward kernel, and its
-backward (dfeat and dw) launches the backward kernel (`BWD_KERNEL`); for
-CPU tensors it runs `bev_pool_points_plain` (gather + `index_add_`),
-whose autograd is the backward's plain version.
+bev_pool_v2): for CUDA tensors it sorts the points into cell intervals
+(`cell_intervals`, PyTorch bookkeeping as bev_pool_v2's prepare step)
+and launches the forward kernel, which pools each interval without
+atomics, and its backward (dfeat and dw) launches the backward kernel
+(`BWD_KERNEL`); for CPU tensors it runs `bev_pool_points_plain` (gather
++ `index_add_`), whose autograd is the backward's plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,7 +24,8 @@ from .. import kernels
 
 KERNEL = kernels.Kernel(
     name="bev_pool", source="bev_pool.cu", symbol="bev_pool_forward",
-    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int64]
+    argtypes=[ctypes.c_void_p] * 8 + [ctypes.c_int64, ctypes.c_int,
+                                      ctypes.c_int64]
     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     replaces="ocrfdet_tpu/ops/bev_pool_pallas.py:95")   # bev_pool_points
 BWD_KERNEL = kernels.Kernel(
@@ -57,17 +61,56 @@ def bev_pool_points_plain(w, pix_id, cell_id, feat, cells: int):
     return out.reshape(B, cells + 1, C)[:, :cells]
 
 
+def cell_intervals(cell_id, cells: int):
+    """The forward kernel's index preparation: (perm [B*P] int64, offsets
+    [B*(cells+1)+1] int32).
+
+    perm stable-sorts the flat points b*P + p by the key b*(cells+1) +
+    cell (a cell id outside [0, cells) counts as `cells`, so invalid
+    points come last in each sample, and points of one cell keep their
+    order); the points of key k sit at perm[offsets[k]:offsets[k+1]].
+    """
+    B, P = cell_id.shape
+    dev = cell_id.device
+    inside = (cell_id >= 0) & (cell_id < cells)
+    first = torch.arange(B, dtype=torch.int32, device=dev) * (cells + 1)
+    key = torch.where(inside, cell_id, cells).to(torch.int32) + first[:, None]
+    keys, perm = torch.sort(key.reshape(-1), stable=True)
+    offsets = torch.searchsorted(
+        keys, torch.arange(B * (cells + 1) + 1, dtype=torch.int32,
+                           device=dev), out_int32=True)
+    return perm, offsets
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk() -> int:
+    """Sorted points per warp of the forward kernel (its source's kChunk),
+    which sizes the kernel's scratch."""
+    return KERNEL.function("bev_pool_forward_chunk", [])()
+
+
+def bev_pool_forward(w, pix_id, cell_id, feat, cells: int, perm, offsets):
+    """K2's forward kernel on CUDA tensors, given the points' intervals
+    (perm, offsets) = `cell_intervals(cell_id, cells)`: [B, cells, C]
+    f32."""
+    B, P = w.shape
+    npix, C = feat.shape[1:]
+    chunks = -(-B * P // _chunk())
+    out = torch.empty((B, cells, C), dtype=torch.float32, device=feat.device)
+    part = torch.empty((chunks, 2, C), dtype=torch.float32,
+                       device=feat.device)
+    KERNEL.launch(kernels.ptr(w), kernels.ptr(pix_id), kernels.ptr(cell_id),
+                  kernels.ptr(perm), kernels.ptr(offsets), kernels.ptr(feat),
+                  kernels.ptr(out), kernels.ptr(part), chunks, B, P, npix, C,
+                  cells, kernels.stream_of(feat))
+    return out
+
+
 class _BevPoolPointsCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, pix_id, cell_id, feat, cells):
-        B, P = w.shape
-        npix, C = feat.shape[1:]
-        out = torch.zeros((B, cells, C), dtype=torch.float32,
-                          device=feat.device)
-        KERNEL.launch(kernels.ptr(w), kernels.ptr(pix_id),
-                      kernels.ptr(cell_id), kernels.ptr(feat),
-                      kernels.ptr(out), B, P, npix, C, cells,
-                      kernels.stream_of(feat))
+        out = bev_pool_forward(w, pix_id, cell_id, feat, cells,
+                               *cell_intervals(cell_id, cells))
         ctx.save_for_backward(w, pix_id, cell_id, feat)
         ctx.cells = cells
         return out
@@ -107,6 +150,9 @@ def bev_pool_points(w, pix_id, cell_id, feat, cells: int):
     if w.device.type != "cuda":
         raise ValueError(f"bev_pool_points: unsupported device {w.device}")
     B, P = w.shape
+    if B * P >= 2 ** 31 or B * (cells + 1) >= 2 ** 31:
+        raise ValueError(f"bev_pool_points: {B} x {P} points or {cells} "
+                         f"cells exceed the kernel's int32 offsets")
     if feat.dim() != 3 or feat.shape[0] != B:
         raise ValueError(f"bev_pool_points: feat {tuple(feat.shape)} "
                          f"does not match w {tuple(w.shape)}")

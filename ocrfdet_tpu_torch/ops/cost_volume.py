@@ -17,7 +17,9 @@ CUDA tensors it launches the kernel, for CPU tensors it runs
 `cost_volume_plain`. Both compute the EXACT bilinear warp (the TPU
 kernel's window clamp is an MXU artefact that the port does not carry),
 round prev to bf16 as both JAX paths do, and weight and accumulate in
-fp32. The volume carries no gradient.
+fp32. The volume carries no gradient. `cost_volume_row_loads` runs the
+kernel's load-counting build (`ROW_LOADS_KERNEL`, never on the model's
+path) and returns how many tap rows its walks loaded.
 """
 from __future__ import annotations
 
@@ -28,12 +30,16 @@ import torch
 
 from .. import kernels
 
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+             + [ctypes.c_float, ctypes.c_void_p])
 KERNEL = kernels.Kernel(
     name="cost_volume", source="cost_volume.cu",
-    symbol="cost_volume_forward",
-    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_void_p],
+    symbol="cost_volume_forward", argtypes=_ARGTYPES,
     replaces="ocrfdet_tpu/ops/cost_volume.py:380")   # cost_volume_mm
+ROW_LOADS_KERNEL = kernels.Kernel(
+    name="cost_volume_row_loads", source="cost_volume.cu",
+    symbol="cost_volume_forward", argtypes=_ARGTYPES,
+    replaces=KERNEL.replaces, defines=("COST_VOLUME_COUNT_LOADS",))
 
 
 def _invalid_channel(C: int) -> int:
@@ -131,6 +137,33 @@ def cost_volume(curr, prev, depths, az, bz, a2, b2, bias: float):
         return cost_volume_plain(curr, prev, depths, az, bz, a2, b2, bias)
     if curr.device.type != "cuda":
         raise ValueError(f"cost_volume: unsupported device {curr.device}")
+    return _launch(KERNEL, curr, prev, depths, az, bz, a2, b2, bias)
+
+
+def cost_volume_row_loads(curr, prev, depths, az, bz, a2, b2,
+                          bias: float) -> int:
+    """The tap rows K1's walks load on these CUDA inputs, counted by
+    the kernel's load-counting build (same code, same results, plus a
+    counter)."""
+    take = ROW_LOADS_KERNEL.function("cost_volume_take_row_loads",
+                                     [ctypes.c_void_p])
+    rows = ctypes.c_ulonglong(0)
+
+    def take_rows() -> int:
+        code = take(ctypes.byref(rows))
+        if code != 0:
+            raise RuntimeError(f"cost_volume_take_row_loads: CUDA error "
+                               f"{code}")
+        return int(rows.value)
+    torch.cuda.synchronize()
+    take_rows()                  # clears the counts of earlier launches
+    _launch(ROW_LOADS_KERNEL, curr, prev, depths, az, bz, a2, b2, bias)
+    torch.cuda.synchronize()
+    return take_rows()
+
+
+def _launch(kernel, curr, prev, depths, az, bz, a2, b2, bias):
+    """Check K1's inputs and launch `kernel` (a build of K1) on them."""
     B, N, H, W, C = curr.shape
     BN, D = B * N, depths.shape[0]
     if C not in (64, 256):
@@ -158,10 +191,9 @@ def cost_volume(curr, prev, depths, az, bz, a2, b2, bias: float):
     depths = depths.contiguous()
     out = torch.empty((B, N, D, H, W), dtype=torch.float32,
                       device=curr.device)
-    KERNEL.launch(kernels.ptr(curr), kernels.ptr(prev_bf), kernels.ptr(coef),
+    kernel.launch(kernels.ptr(curr), kernels.ptr(prev_bf), kernels.ptr(coef),
                   kernels.ptr(cam), kernels.ptr(depths), kernels.ptr(out),
-                  BN, D, H, W, C, _invalid_channel(C), float(bias),
-                  kernels.stream_of(curr))
+                  BN, D, H, W, C, float(bias), kernels.stream_of(curr))
     return out
 
 

@@ -26,7 +26,7 @@ from . import entry
 # kernel-name substrings -> group, first match wins
 GROUPS = (
     ("K1 cost_volume", ("cost_volume_kernel",)),
-    ("K2 bev_pool", ("bev_pool_forward_kernel",)),
+    ("K2 bev_pool", ("bev_pool_chunk_kernel", "bev_pool_cells_kernel")),
     ("K2 bev_pool bwd", ("bev_pool_backward_kernel",)),
     ("K3 ht_pool", ("ht_pool_forward_kernel",)),
     ("K3 ht_pool bwd", ("ht_pool_backward_kernel",)),

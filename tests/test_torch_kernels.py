@@ -11,7 +11,9 @@ marker is registered on the command line):
 Tolerances: K1 rtol 1e-5 / atol 1e-3 (the kernel sums the channels in
 another order; its sample coordinates round exactly like the plain
 version's, so no out-of-view flag may flip); K2 rtol 1e-5 / atol 1e-5
-(fp32 atomics add in a varying order); K3 rtol 1e-5 / atol 1e-5 of the
+(it sums each cell's points in chunks of its sorted order, index_add_ in
+its own order; the kernel's own result is the same bits on every run);
+K3 rtol 1e-5 / atol 1e-5 of the
 output scale (the plain version sums the heights in its own order);
 K4 rtol 1e-5 / atol 1e-6 (the same products and sums, rounded
 separately in both). The backward kernels of K2, K3 and K4 add with
@@ -94,6 +96,55 @@ def test_cost_volume_kernel_rejects_bad_inputs(dev):
         cvm.cost_volume(curr, prev, depths, az[..., :-1], bz, a2, b2, 5.0)
 
 
+def _walk_inputs(dev, C, kind, seed=0):
+    """K1 inputs with coefficient maps made to stress the row window:
+    near planes sweep several pixels a plane from outside the image into
+    it ("jumps"); some pixels' planes fall behind the camera ("behind");
+    the planes' depths alternate near and far, so walks leave the image
+    and come back to rows they held many planes before ("reenter")."""
+    rng = np.random.default_rng(seed)
+    B, N, H, W, D = 1, 2, 12, 20, 40
+    near_far = np.linspace(1.0, 60.0, D)
+    depths = near_far.copy()
+    if kind == "reenter":
+        depths[1::2] = near_far[::-1][1::2]
+    az = np.ones((B, N, H, W))
+    bz = np.full((B, N), 0.5)
+    if kind == "behind":      # den = 2 - 0.05 d < 1e-3 beyond d = 40
+        az = np.where(rng.random((B, N, H, W)) < 0.5, -0.05, 1.0)
+        bz[:] = 2.0
+    a2 = np.stack([rng.uniform(0, W - 1, (B, N, H, W)),
+                   rng.uniform(0, H - 1, (B, N, H, W))], -1)
+    b2 = rng.uniform(-100.0, 100.0, (B, N, 2))
+    curr = np.maximum(rng.standard_normal((B, N, H, W, C)), 0)
+    prev = np.maximum(rng.standard_normal((B, N, H, W, C)), 0)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    return (t(curr), t(prev).to(torch.bfloat16), t(depths), t(az), t(bz),
+            t(a2), t(b2))
+
+
+@pytest.mark.parametrize("kind", ["jumps", "behind", "reenter"])
+@pytest.mark.parametrize("C", [64, 256])
+def test_cost_volume_kernel_row_window_walks(dev, C, kind):
+    """Walks that jump several pixels a plane, planes behind the camera,
+    and walks that leave the image and come back: the kernel reuses a
+    row only while its pixel is the same, so it matches the plain
+    version and no flag flips; its load-counting build loads as many
+    rows as chip_smoke.py's host rule says the design should."""
+    import chip_smoke
+    args = _walk_inputs(dev, C, kind) + (5.0,)
+    got = cvm.cost_volume(*args)
+    want = cvm.cost_volume_plain(*args)
+    torch.cuda.synchronize()
+    assert int(((got - want).abs() > 2.5).sum()) == 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, cvm.cost_volume(*args))
+    H, W = args[0].shape[2:4]
+    taps, model = chip_smoke._k1_row_loads(*args[2:7], H, W)
+    assert 0 < model < taps
+    assert cvm.cost_volume_row_loads(*args) == model
+
+
 def _pool_inputs(dev, seed=0, B=2, P=5000, npix=300, C=80, cells=400):
     rng = np.random.default_rng(seed)
     w = torch.from_numpy(rng.random((B, P), dtype=np.float32)).to(dev)
@@ -114,6 +165,60 @@ def test_bev_pool_kernel_matches_plain(dev):
     torch.cuda.synchronize()
     assert bp.KERNEL.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _pool_f64(w, pix, cell, feat, cells):
+    """K2's function summed in float64: [B, cells, C]."""
+    B, P = w.shape
+    C = feat.shape[-1]
+    rows = torch.gather(feat.double(), 1,
+                        pix.long()[..., None].expand(B, P, C))
+    out = torch.zeros((B, cells + 1, C), dtype=torch.float64,
+                      device=w.device)
+    out.scatter_add_(1, cell.long()[..., None].expand(B, P, C),
+                     rows * w.double()[..., None])
+    return out[:, :cells]
+
+
+@pytest.mark.parametrize("kind", ["b2", "one_cell_most", "empty_cells",
+                                  "all_invalid_sample", "c7", "c200"])
+def test_bev_pool_forward_intervals(dev, kind):
+    """The interval kernel on cells that span many chunks (one cell with
+    most points), many empty cells, a sample whose points are all
+    invalid, C = 7 (one channel a lane) and C = 200 (two channel blocks):
+    it matches the plain version, its error against a float64 sum is no
+    larger than the plain version's, it writes exact zeros for empty
+    cells and gives the same bits on a second run.
+
+    The cell with ~4,500 points of unit-scale products is held to the
+    float64 sum only: the fp32 sum order alone moves it by ~1e-4
+    (1.75e-4 between the kernel and index_add_ on an H100)."""
+    kw = {"c7": dict(C=7), "c200": dict(C=200),
+          "empty_cells": dict(cells=4000)}.get(kind, {})
+    w, pix, cell, feat, cells = _pool_inputs(dev, seed=2, **kw)
+    if kind == "one_cell_most":
+        gen = torch.Generator(device=dev).manual_seed(3)
+        most = torch.rand(cell.shape, generator=gen, device=dev) < 0.9
+        cell = torch.where(most, torch.full_like(cell, 7), cell)
+    if kind == "all_invalid_sample":
+        cell[1] = cells
+    got = bp.bev_pool_points(w, pix, cell, feat, cells)
+    want = bp.bev_pool_points_plain(w, pix, cell, feat, cells)
+    again = bp.bev_pool_points(w, pix, cell, feat, cells)
+    exact = _pool_f64(w, pix, cell, feat, cells)
+    torch.cuda.synchronize()
+    if kind != "one_cell_most":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((want.double() - exact).abs().max())
+    assert err <= 2 * plain_err + 1e-6, (err, plain_err)
+    assert torch.equal(got, again)
+    hit = torch.zeros((cell.shape[0], cells + 1), dtype=torch.bool,
+                      device=dev)
+    hit.scatter_(1, cell.long(), True)
+    assert bool((got[~hit[:, :cells]] == 0).all())
+    if kind == "all_invalid_sample":
+        assert bool((got[1] == 0).all())
 
 
 def _grads(fn, args, diff, cot):
