@@ -13,9 +13,10 @@ Phases, each printing a line:
      counts the tap rows it loads with its load-counting build, which
      must equal its design's rule; K2 times its preparation and its
      kernel apart, prints its longest cell interval and must give the
-     same bits on two runs), and the backward kernels of K2, K3 and K4 at
-     the training step's shapes (batch 2) on random cotangents, each vs
-     its plain version's autograd;
+     same bits on two runs; K4 must give its plain version's bits), and
+     the backward kernels of K2, K3 and K4 at the training step's shapes
+     (batch 2) on random cotangents, each vs its plain version's
+     autograd (K4's timed in three traces and with CUDA events);
   4. the BEVDepth slice (`ocrfdet_config(batch_size=1,
      with_ocrf=False)`) through `entry.infer` on a window of 30 requests
      after warm-up (2 K1 + 2 K2 launches per request), then one request
@@ -34,7 +35,10 @@ Phases, each printing a line:
      backwards and 1 of K5's forward and backward per step (the key
      frame alone is differentiated); every loss finite, no step skipped;
   7. K5 forward and backward on those recorded flagship streams vs its
-     plain version;
+     plain version (the backward twice, the same bits; the bound's
+     special-function term counted from the streams, beside the MUFU
+     instructions in the compiled code; an estimate of the backward's
+     issue slots per (warp, Gaussian) step);
   8. one fp32 step at batch 1 from the same weights and batch with the
      kernels (three times), with the plain versions, with K2-K5 plain and
      K1's kernel, with each kernel alone plain, and with K1 and with K2
@@ -70,17 +74,22 @@ def log(msg: str) -> None:
 
 
 def device_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over `reps` calls: the summed durations
-    of the device kernels, copies and memsets it launches, as
-    torch.profiler records them on the card. (A host clock or CUDA
-    events around back-to-back calls would time the Python wrapper
-    instead wherever a kernel runs shorter than its launch overhead.)
-    The profiler now and then loses a device event, so each of three
-    traces scales its sum by the events it should hold (k per call, k
-    the nearest whole number to its events / reps) over those it holds,
-    and the median trace is taken; a trace with under half an event per
-    call counts for nothing, and CUDA events time the calls when no
-    trace counts."""
+    """Mean device time of fn() over `reps` calls: the median of
+    `device_ms_traces`."""
+    return float(np.median(device_ms_traces(fn, reps, warmup)))
+
+
+def device_ms_traces(fn, reps: int, warmup: int = 1) -> list:
+    """Mean device time of fn() over `reps` calls in each of three traces:
+    the summed durations of the device kernels, copies and memsets it
+    launches, as torch.profiler records them on the card. (A host clock
+    or CUDA events around back-to-back calls would time the Python
+    wrapper instead wherever a kernel runs shorter than its launch
+    overhead.) The profiler now and then loses a device event, so each
+    trace scales its sum by the events it should hold (k per call, k the
+    nearest whole number to its events / reps) over those it holds; a
+    trace with under half an event per call counts for nothing, and CUDA
+    events time the calls when no trace counts."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -97,7 +106,7 @@ def device_ms(fn, reps: int, warmup: int = 1) -> float:
         if k >= 1:
             estimates.append(sum(spans) * k / len(spans) / 1e3)
     if estimates:
-        return float(np.median(estimates))
+        return estimates
     log("[timing] the profiler recorded under half an event per call in "
         "three traces; CUDA events time this call")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -106,7 +115,7 @@ def device_ms(fn, reps: int, warmup: int = 1) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return [start.elapsed_time(end) / reps]
 
 
 def bound(nbytes: float, flops: float):
@@ -403,13 +412,11 @@ def check_k3(cfg, dev):
     return with_b2(_k3_case(cfg, dev, 1), _k3_case(cfg, dev, 2))
 
 
-def _k4_case(cfg, dev, B, C):
-    """K4 at flagship shape: random maps at full image resolution of B x 6
-    cameras with C channels (1 at eval; the training step's key frame
-    samples 4: alpha and RGB) at the key frame's projected points."""
-    import torch.nn.functional as F
-    from ocrfdet_tpu_torch.ops import point_sample as ps
-
+def k4_inputs(cfg, dev, B, C):
+    """K4's inputs at flagship shape: random maps at full image resolution
+    of B x 6 cameras with C channels (1 at eval; the training step's key
+    frame samples 4: alpha and RGB) and the key frame's projected points
+    (px, py [B x 6, P])."""
     uvd, _ = flagship_projection(cfg, dev, B)
     N = cfg.data.num_cams
     H, W = cfg.vt.render_image_size
@@ -418,12 +425,22 @@ def _k4_case(cfg, dev, B, C):
     maps = torch.rand((B * N, H, W, C), generator=g, device=dev)
     px = (uvd[..., 0] * W).reshape(B * N, P).contiguous()
     py = (uvd[..., 1] * H).reshape(B * N, P).contiguous()
+    return maps, px, py
+
+
+def _k4_case(cfg, dev, B, C):
+    """K4's forward at flagship shape, batch B, C channels."""
+    import torch.nn.functional as F
+    from ocrfdet_tpu_torch.ops import point_sample as ps
+
+    maps, px, py = k4_inputs(cfg, dev, B, C)
+    H, W = maps.shape[1:3]
     got = ps.point_sample_points(maps, px, py)
     want = ps.point_sample_points_plain(maps, px, py)
     torch.cuda.synchronize()
     max_abs = float((got - want).abs().max())
-    # the same separately rounded products and sums: rtol 1e-5 / atol 1e-6
-    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
+    # the same separately rounded products and sums: bit for bit
+    ok = bool(torch.equal(got, want))
     ms = device_ms(lambda: ps.point_sample_points(maps, px, py), reps=50)
     plain_ms = device_ms(lambda: ps.point_sample_points_plain(maps, px, py),
                          reps=10)
@@ -443,7 +460,7 @@ def _k4_case(cfg, dev, B, C):
     # for its tap weights
     bound_ms, bound_by = bound(moved, 7 * got.numel() + 12 * px.numel())
     log(f"[k4] point_sample batch {B} C={C} {tuple(got.shape)}: max_abs_err "
-        f"{max_abs:.3e} (tol rtol 1e-5 atol 1e-6: {'ok' if ok else 'FAIL'}); "
+        f"{max_abs:.3e} (tol: bit for bit: {'ok' if ok else 'FAIL'}); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
         f"{library_ms:.4f} ms (max |diff| to it {lib_err:.3e}); bound "
         f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB)")
@@ -576,8 +593,20 @@ def check_k4_bwd(cfg, dev, B=2):
                                  (maps, px, py), (0,), cot)
     torch.cuda.synchronize()
     err, scale, ok = close(dmap, pmap, 1e-5, 1e-5)
-    ms = device_ms(lambda: ps.point_sample_points_backward(
-        px, py, cot, maps.shape), reps=20)
+    # three traces, to show their spread
+    def run():
+        return ps.point_sample_points_backward(px, py, cot, maps.shape)
+    traces = device_ms_traces(run, reps=20)
+    ms = float(np.median(traces))
+    # and CUDA events around 20 back-to-back calls (each call's device
+    # work outlasts its launch, so the events time the device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(20):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    events_ms = start.elapsed_time(end) / 20
     plain_ms = device_ms(again, reps=5)
     # yardstick: F.grid_sample's backward to its input on the same points
     m_nchw = maps.permute(0, 3, 1, 2).contiguous().requires_grad_()
@@ -593,44 +622,105 @@ def check_k4_bwd(cfg, dev, B=2):
     log(f"[k4-bwd] point_sample backward dout {tuple(cot.shape)} -> dmap "
         f"{tuple(dmap.shape)}: max_abs_err {err:.3e} (max {scale:.3f}; tol "
         f"rtol 1e-5 atol 1e-5 x scale: {'ok' if ok else 'FAIL'}); kernel "
-        f"{ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, grid_sample "
-        f"backward {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({moved / 1e6:.2f} MB)")
+        f"{ms:.4f} ms (median of three traces: "
+        f"{', '.join(f'{x:.4f}' for x in traces)}; spread "
+        f"{max(traces) - min(traces):.4f} ms; CUDA events "
+        f"{events_ms:.4f} ms), plain (autograd) "
+        f"{plain_ms:.4f} ms, grid_sample backward {library_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB)")
     if not ok:
         raise AssertionError("K4 backward kernel disagrees with its plain "
                              "version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, ms_traces=traces,
+                ms_events=events_ms)
 
 
 def _composite_work(attrs, T, n_tx):
-    """(live slots, (pixel, Gaussian) pairs that pass the keep test) of
-    K5's input: the work its kernels do on these streams."""
+    """K5's work on its input, worked out on the host with the plain
+    version's quantities: live slots, (pixel, live Gaussian) pairs inside
+    the Gaussian's 3-sigma square and pairs that pass the keep test."""
     from ocrfdet_tpu_torch.ops.splat import composite as ct
-    px, py = ct._pixel_coords(attrs.shape[0], T, n_tx, 16, 16, attrs.device)
-    kept = 0
+    NT = attrs.shape[0]
+    px, py = ct._pixel_coords(NT, T, n_tx, 16, 16, attrs.device)
+    square = kept = 0
     for k0 in range(0, attrs.shape[1], ct.CHUNK):
-        q = ct._chunk_quantities(attrs[:, k0:k0 + ct.CHUNK], px, py)
+        c = attrs[:, k0:k0 + ct.CHUNK]
+        q = ct._chunk_quantities(c, px, py)
+        live = (c[..., 7] != 0)[..., None]
+        rad = c[..., 5, None]
+        near = (q["dx"].abs() <= rad) & (q["dy"].abs() <= rad) & live
+        square += int(near.sum())
         kept += int(q["keep"].sum())
-    return int((attrs[..., 7] > 0).sum()), kept
+    return dict(live=int((attrs[..., 7] != 0).sum()), square=square,
+                kept=kept)
+
+
+def sass_mufu(kernel, function: str) -> dict:
+    """{MUFU operation: count} in the compiled code (`cuobjdump -sass` of
+    the built library) of the device function whose name holds
+    `function`: its main body (up to its last unconditional EXIT; the
+    subroutines after it are slow paths), without the reciprocals that
+    seed an integer division (MUFU.RCP of an I2F result)."""
+    import re
+    from pathlib import Path
+    from ocrfdet_tpu_torch import kernels
+    tool = Path(kernels.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(kernel.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside:
+            m = re.search(r"\*/\s+(.*?)\s*;", line)
+            if m:
+                body.append(m.group(1))
+    exits = [i for i, ins in enumerate(body) if ins == "EXIT"]
+    counts = {}
+    for i, ins in enumerate(body[:exits[-1]] if exits else []):
+        m = re.match(r"(?:@!?U?P\w+\s+)?MUFU\.(\w+)\s+R\d+,\s*(R\d+)", ins)
+        if m and not (m.group(1) == "RCP" and any(
+                re.match(rf"I2F\S*\s+{m.group(2)}\b", prev)
+                for prev in body[max(0, i - 4):i])):
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    if not counts.get("EX2"):
+        raise AssertionError(f"no MUFU.EX2 (exp) in the SASS of {function}")
+    return counts
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+H100_SMS = 132
+MUFU_PER_SM_CLOCK = 16          # special-function results per SM a clock
+ISSUE_PER_SM_CLOCK = 4          # warp-instructions issued per SM a clock
 
 
 def check_k5(attrs, T, n_tx):
     """K5 forward and backward on the flagship streams recorded in the
     training window (both samples' tiles, as the step launches them),
-    with random cotangents, vs the plain version."""
+    with random cotangents, vs the plain version; the backward twice
+    (the same bits)."""
     from ocrfdet_tpu_torch.ops.splat import composite as ct
 
     dev = attrs.device
-    rgb, med, logt = ct.composite_forward(attrs, T, n_tx, 16)
-    prgb, pmed, plogt = ct.composite_forward_plain(attrs, T, n_tx, 16, 16)
+    rgb, med, logt, cross = ct.composite_forward(attrs, T, n_tx, 16)
+    prgb, pmed, plogt, pcross = ct.composite_forward_plain(attrs, T, n_tx,
+                                                           16, 16)
     gen = torch.Generator(device=dev).manual_seed(15)
     g_rgb = torch.randn(rgb.shape, generator=gen, device=dev)
     g_med = torch.randn(med.shape, generator=gen, device=dev)
     g_logt = torch.randn(logt.shape, generator=gen, device=dev)
-    d = ct.composite_backward(attrs, prgb, g_rgb, g_logt, g_med, T, n_tx, 16)
-    pd = ct.composite_backward_plain(attrs, prgb, g_rgb, g_logt, g_med, T,
-                                     n_tx, 16, 16)
+    bwd_args = (attrs, prgb, g_rgb, g_logt, g_med, pcross, T, n_tx, 16)
+    d = ct.composite_backward(*bwd_args)
+    same = bool(torch.equal(d, ct.composite_backward(*bwd_args)))
+    pd = ct.composite_backward_plain(*bwd_args[:-1], 16, 16)
     torch.cuda.synchronize()
     # the same chunks, other sums inside a chunk: rtol 1e-4, atol 1e-5 of
     # the scale (the Pallas kernel's tolerance against the XLA
@@ -638,51 +728,104 @@ def check_k5(attrs, T, n_tx):
     # rounding (at most 1 pixel in 10^4)
     fwd = [close(rgb, prgb, 1e-4, 1e-5), close(logt, plogt, 1e-4, 1e-5)]
     flips = int((med - pmed).abs().gt(1e-5 * pmed.abs()).sum())
-    fwd_ok = all(ok for *_, ok in fwd) and flips <= med.numel() // 10000
+    cross_flips = int((cross != pcross).sum())
+    fwd_ok = (all(ok for *_, ok in fwd)
+              and max(flips, cross_flips) <= med.numel() // 10000)
     bwd = {k: close(d[..., i], pd[..., i], 1e-4, 1e-5)
            for i, k in enumerate(ct.STREAMS)}
     bwd_ok = all(ok for *_, ok in bwd.values())
-    live, kept = _composite_work(attrs, T, n_tx)
+    work = _composite_work(attrs, T, n_tx)
+    live, kept = work["live"], work["kept"]
     pairs = live * ct.TILE_PIXELS
+    steps = live * (ct.TILE_PIXELS // 32)      # (warp, live Gaussian)
     fwd_ms = device_ms(lambda: ct.composite_forward(attrs, T, n_tx, 16),
                        reps=20)
-    bwd_ms = device_ms(lambda: ct.composite_backward(
-        attrs, prgb, g_rgb, g_logt, g_med, T, n_tx, 16), reps=10)
+    bwd_ms = device_ms(lambda: ct.composite_backward(*bwd_args), reps=10)
     fwd_plain = device_ms(lambda: ct.composite_forward_plain(
         attrs, T, n_tx, 16, 16), reps=2)
     bwd_plain = device_ms(lambda: ct.composite_backward_plain(
-        attrs, prgb, g_rgb, g_logt, g_med, T, n_tx, 16, 16), reps=2)
+        *bwd_args[:-1], 16, 16), reps=2)
     # operations: ~15 per evaluated (pixel, live Gaussian) pair (offsets,
     # power, exp, alpha, keep), ~12 more per kept pair forward (log1p,
     # exp, weights, RGB, crossing) and ~45 backward (the suffix trick and
-    # ten chain-rule terms, their warp sums)
-    fb = bound(nbytes(attrs, rgb, med, logt), 15 * pairs + 12 * kept)
-    bb = bound(nbytes(attrs, prgb, g_rgb, g_logt, g_med, d),
-               15 * pairs + 45 * kept)
+    # ten chain-rule terms, their sums). Special functions (16 results a
+    # clock per SM at the card's maximum clock): what the function needs
+    # on these streams, one exp per pair inside its Gaussian's square
+    # (the only pairs that need it) and one more per kept pair, log1p
+    # forward, the suffix trick's reciprocal of 1 - alpha backward. The
+    # compiled code's MUFU instructions are printed beside it.
+    clock = max_sm_clock_hz()
+    sfu_ms = (work["square"] + kept) / (
+        H100_SMS * MUFU_PER_SM_CLOCK * clock) * 1e3
+    fb_ops = bound(nbytes(attrs, rgb, med, logt), 15 * pairs + 12 * kept)
+    bb_ops = bound(nbytes(attrs, prgb, g_rgb, g_logt, g_med, d),
+                   15 * pairs + 45 * kept)
+    mufu = {name: sass_mufu(k, fn) for name, k, fn in (
+        ("forward", ct.KERNEL, "composite_forward_kernel"),
+        ("backward", ct.BWD_KERNEL, "composite_backward_kernel"))}
+
+    def with_sfu(ops_bound):
+        """(ms, bound_by, the term that sets it)"""
+        if sfu_ms > ops_bound[0]:
+            return sfu_ms, "operations", "special functions"
+        return (*ops_bound, ops_bound[1])
+    fb, bb = with_sfu(fb_ops), with_sfu(bb_ops)
+    # an estimate, not a measurement: the issue slots the measured time
+    # holds at the maximum clock (the clock the card ran at is not read)
+    issue = bwd_ms * 1e-3 * H100_SMS * ISSUE_PER_SM_CLOCK * clock / steps
     worst = max(bwd, key=lambda k: bwd[k][0] / bwd[k][1])
     log(f"[k5] composite_tiles attrs {tuple(attrs.shape)} ({live} live "
-        f"slots, {kept} kept pixel-Gaussian pairs): forward max_abs_err rgb "
+        f"slots; of their {pairs} pixel-Gaussian pairs {work['square']} "
+        f"inside the 3-sigma square, {kept} kept): forward max_abs_err rgb "
         f"{fwd[0][0]:.3e} (max {fwd[0][1]:.3f}), logt {fwd[1][0]:.3e} (max "
-        f"{fwd[1][1]:.3f}), median flips {flips} of {med.numel()} (tol rtol "
-        f"1e-4 atol 1e-5 x scale, flips <= 1e-4: "
+        f"{fwd[1][1]:.3f}), median flips {flips}, crossing-slot flips "
+        f"{cross_flips} of {med.numel()} (tol rtol 1e-4 atol 1e-5 x scale, "
+        f"flips <= 1e-4: "
         f"{'ok' if fwd_ok else 'FAIL'}); backward worst {worst} "
         f"{bwd[worst][0]:.3e} (max {bwd[worst][1]:.3e}) (tol rtol 1e-4 atol "
-        f"1e-5 x scale per stream: {'ok' if bwd_ok else 'FAIL'}); forward "
-        f"kernel {fwd_ms:.4f} ms, plain {fwd_plain:.3f} ms, bound "
-        f"{fb[0]:.4f} ms by {fb[1]}; backward kernel {bwd_ms:.4f} ms, plain "
-        f"{bwd_plain:.3f} ms, bound {bb[0]:.4f} ms by {bb[1]}; no library "
-        f"call")
+        f"1e-5 x scale per stream: {'ok' if bwd_ok else 'FAIL'}), run to "
+        f"run {'bitwise equal' if same else 'DIFFERENT'}"
+        f"; forward kernel {fwd_ms:.4f} ms, plain {fwd_plain:.3f} ms, "
+        f"bound {fb[0]:.4f} ms by {fb[2]}; backward kernel {bwd_ms:.4f} "
+        f"ms, plain {bwd_plain:.3f} ms, bound {bb[0]:.4f} ms by {bb[2]}; "
+        f"no library call")
+    log(f"[k5] bound terms: special functions {sfu_ms:.4f} ms ("
+        f"{work['square'] + kept} results at {clock / 1e6:.0f} MHz), fp32 "
+        f"operations forward {fb_ops[0]:.4f} ms, backward "
+        f"{bb_ops[0]:.4f} ms; MUFU in the compiled code: forward "
+        f"{mufu['forward']}, backward {mufu['backward']}; backward "
+        f"{steps} (warp, live Gaussian) steps, an estimated {issue:.1f} "
+        f"issue slots per step (the measured time x {H100_SMS} SMs x "
+        f"{ISSUE_PER_SM_CLOCK} a clock at the assumed {clock / 1e6:.0f} "
+        f"MHz)")
     for k, (e, s, ok) in bwd.items():
         log(f"[k5]   d{k}: max_abs_err {e:.3e}, max {s:.3e}"
             f"{'' if ok else ' FAIL'}")
-    if not (fwd_ok and bwd_ok):
-        raise AssertionError("K5 kernel disagrees with its plain version")
+    if not (fwd_ok and bwd_ok and same):
+        raise AssertionError("K5 kernel disagrees with its plain version "
+                             "or with itself")
     fwd_err = max(fwd[0][0], fwd[1][0])
     return (dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain,
                  bound_ms=fb[0], bound_by=fb[1], library_ms=None),
             dict(max_abs_err=max(e for e, _, _ in bwd.values()), ms=bwd_ms,
                  plain_ms=bwd_plain, bound_ms=bb[0], bound_by=bb[1],
                  library_ms=None))
+
+
+@contextlib.contextmanager
+def recording_k5():
+    """Record the first input of K5 (attrs and its tiling) that the model
+    hands to `composite_tiles`: yields {"attrs", "dims"}."""
+    from ocrfdet_tpu_torch.ops.splat import composite as ct
+    recorded = {}
+    original = ct.composite_tiles
+
+    def record(attrs, *dims):
+        recorded.setdefault("attrs", attrs.detach().clone())
+        recorded.setdefault("dims", dims)
+        return original(attrs, *dims)
+    with mock.patch.object(ct, "composite_tiles", record):
+        yield recorded
 
 
 def check_training(dev, all_kernels, per_step, n_steps=10, n_warmup=3):
@@ -693,7 +836,6 @@ def check_training(dev, all_kernels, per_step, n_steps=10, n_warmup=3):
     streams recorded in the first warm-up step and their tiling)."""
     from ocrfdet_tpu_torch import bench_train, entry
     from ocrfdet_tpu_torch.config import ocrfdet_config
-    from ocrfdet_tpu_torch.ops.splat import composite as ct
 
     cfg = ocrfdet_config(batch_size=2)
     t0 = time.perf_counter()
@@ -704,15 +846,8 @@ def check_training(dev, all_kernels, per_step, n_steps=10, n_warmup=3):
     log(f"[train] built the flagship trainer ({n_params / 1e6:.2f} M params, "
         f"{cfg.compute_dtype} towers, remat={cfg.backbone.remat}) and 2 "
         f"training batches of 2 in {time.perf_counter() - t0:.1f} s")
-    recorded = {}
-    original = ct.composite_tiles
-
-    def record(attrs, *dims):
-        recorded.setdefault("attrs", attrs.detach().clone())
-        recorded.setdefault("dims", dims)
-        return original(attrs, *dims)
     t0 = time.perf_counter()
-    with mock.patch.object(ct, "composite_tiles", record):
+    with recording_k5() as recorded:
         first = entry.train_step(state, batches[0])
     for i in range(1, n_warmup):
         entry.train_step(state, batches[i % len(batches)])
@@ -1145,7 +1280,7 @@ def main() -> int:
     kernels.build(kernel_list + [cvm.ROW_LOADS_KERNEL])
     nms.native_library()
     sources = sorted({k.source for k in kernel_list})
-    log(f"[build] {', '.join(sources)} and K1's load-counting build of "
+    log(f"[build] {', '.join(sources)}, K1's load-counting build of "
         f"{cvm.ROW_LOADS_KERNEL.source} (nvcc) and nms.cpp (c++) -> "
         f"{kernels.BUILD_DIR.name}/ in {time.perf_counter() - t:.1f} s")
     eval_kernels = [cvm.KERNEL, bp.KERNEL, htp.KERNEL, ps.KERNEL]

@@ -10,7 +10,9 @@ weighing zero: for px in (-1, 0) the tap u = 0 weighs 1-|px|. This is
 `point_sample` is the wrapper of kernel K4 (`csrc/point_sample.cu`, the
 counterpart of the Pallas `_point_sample_mm` forward): for CUDA tensors
 it launches the kernel, for CPU tensors it runs
-`point_sample_points_plain`.
+`point_sample_points_plain`. The kernel is specialised on C (1-4); for
+C = 4 with 16-byte aligned maps and output it reads each tap as one
+16-byte load (the launcher picks the form; both give the same bits).
 Both compute in fp32. On CUDA the backward (the maps' gradient, for
 every channel) launches K4's backward kernel (`BWD_KERNEL`); px and py
 get none, as in the Pallas VJP. On the CPU it is the plain version's
@@ -128,6 +130,9 @@ def point_sample_points(maps, px, py):
         raise ValueError(f"point_sample: C {C} outside (0, {MAX_C}]")
     if BN > 65535:
         raise ValueError(f"point_sample: {BN} maps, at most 65535")
+    if H * W * C >= 2 ** 31:
+        raise ValueError(f"point_sample: a map of {H * W * C} values, the "
+                         f"kernel takes fewer than 2^31")
     for name, t in (("maps", maps), ("px", px), ("py", py)):
         if t.device != maps.device:
             raise ValueError(f"point_sample: {name} on {t.device}")

@@ -10,7 +10,9 @@ colour, the median depth (the depth of the Gaussian at which T first
 drops below 0.5, 15.0 if none) and the log transmittance; the caller
 adds the background. Its backward gives the gradient of every
 attribute but rad (zero), with the median's gradient on the crossing
-Gaussian's depth.
+Gaussian's depth: the forward also finds each pixel's crossing slot
+(`cross` [NT, P] int32, the slot at which T first drops below 0.5, -1
+if none), which the backward reads.
 
 For CUDA tensors `composite_tiles` runs kernel K5 (`csrc/
 composite_tiles.cu`: `KERNEL` forward, `BWD_KERNEL` backward, one launch
@@ -41,12 +43,12 @@ TILE_PIXELS = 256          # the kernel runs one thread per pixel
 KERNEL = kernels.Kernel(
     name="composite_tiles", source="composite_tiles.cu",
     symbol="composite_tiles_forward",
-    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     replaces="ocrfdet_tpu/ops/splat/render_pallas.py:341")  # composite_tiles
 BWD_KERNEL = kernels.Kernel(
     name="composite_tiles_bwd", source="composite_tiles.cu",
     symbol="composite_tiles_backward",
-    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     replaces="ocrfdet_tpu/ops/splat/render_pallas.py:150")  # _bwd_kernel
 
 
@@ -81,13 +83,16 @@ def _chunk_quantities(c, px, py):
 
 def composite_forward_plain(attrs, n_tiles: int, n_tx: int, tile_h: int,
                             tile_w: int):
-    """Plain version of K5's forward (the Pallas `_mirror_fwd`)."""
+    """Plain version of K5's forward (the Pallas `_mirror_fwd`): rgb, med,
+    logt and the crossing slot `cross` (the first slot whose kept
+    Gaussian leaves T below 0.5, -1 if none)."""
     NT, M, _ = attrs.shape
     px, py = _pixel_coords(NT, n_tiles, n_tx, tile_h, tile_w, attrs.device)
     z = torch.zeros_like(px)
     rgb = torch.zeros((NT, px.shape[1], 3), device=attrs.device)
     logt, found = z.clone(), z.clone()
     med = torch.full_like(px, MEDIAN_DEPTH_DEFAULT)
+    cross = torch.full(px.shape, -1, dtype=torch.int32, device=px.device)
     for k0 in range(0, M, CHUNK):
         c = attrs[:, k0:k0 + CHUNK]
         q = _chunk_quantities(c, px, py)
@@ -101,16 +106,21 @@ def composite_forward_plain(attrs, n_tiles: int, n_tx: int, tile_h: int,
             t_after, MED_BIG)).amin(dim=1)
         fresh = (found == 0.0) & (med_c < MED_BIG)
         med = torch.where(fresh, med_c, med)
+        # argmax gives the first of the equal maxima: the first crossing
+        first = crossed.to(torch.int32).argmax(dim=1).to(torch.int32) + k0
+        cross = torch.where(fresh, first, cross)
         found = torch.maximum(found, crossed.any(dim=1).float())
         logt = logt + cum_in[:, -1]
-    return rgb, med, logt
+    return rgb, med, logt, cross
 
 
-def composite_backward_plain(attrs, tot_rgb, g_rgb, g_logt, g_med,
+def composite_backward_plain(attrs, tot_rgb, g_rgb, g_logt, g_med, cross,
                              n_tiles: int, n_tx: int, tile_h: int,
                              tile_w: int):
     """Plain version of K5's backward (the Pallas `_mirror_bwd`, the
-    suffix trick): dattrs [NT, M, 11], rad's column 0."""
+    suffix trick): dattrs [NT, M, 11], rad's column 0. The median's
+    gradient goes to each pixel's crossing slot `cross` (from the
+    forward)."""
     NT, M, _ = attrs.shape
     px, py = _pixel_coords(NT, n_tiles, n_tx, tile_h, tile_w, attrs.device)
     gr, gg, gb = g_rgb[..., 0], g_rgb[..., 1], g_rgb[..., 2]
@@ -135,8 +145,8 @@ def composite_backward_plain(attrs, tot_rgb, g_rgb, g_logt, g_med,
         dalpha = dalpha * live
         dpow = dalpha * q["op"] * q["e"] * (q["power"] < 0.0).float()
         dx, dy = q["dx"], q["dy"]
-        t_after = torch.exp(logt[:, None, :] + cum_in)
-        sel = ((t_here >= 0.5) & (t_after < 0.5) & (alpha > 0.0)).float()
+        slots = torch.arange(k0, k0 + c.shape[1], device=attrs.device)
+        sel = (slots[None, :, None] == cross[:, None, :]).float()
         ca, cb, cc = q["ca"], q["cb"], q["cc"]
         grads = [
             (dpow * (ca * dx + cb * dy)).sum(2),          # mx
@@ -168,18 +178,18 @@ def _cotangents(rgb, g_rgb, g_med, g_logt):
 class _CompositePlain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attrs, n_tiles, n_tx, tile_h, tile_w):
-        rgb, med, logt = composite_forward_plain(attrs, n_tiles, n_tx,
-                                                 tile_h, tile_w)
-        ctx.save_for_backward(attrs, rgb)
+        rgb, med, logt, cross = composite_forward_plain(
+            attrs, n_tiles, n_tx, tile_h, tile_w)
+        ctx.save_for_backward(attrs, rgb, cross)
         ctx.dims = (n_tiles, n_tx, tile_h, tile_w)
         return rgb, med, logt
 
     @staticmethod
     def backward(ctx, g_rgb, g_med, g_logt):
-        attrs, rgb = ctx.saved_tensors
+        attrs, rgb, cross = ctx.saved_tensors
         g_rgb, g_med, g_logt = _cotangents(rgb, g_rgb, g_med, g_logt)
         d = composite_backward_plain(attrs, rgb, g_rgb, g_logt, g_med,
-                                     *ctx.dims)
+                                     cross, *ctx.dims)
         return d, None, None, None, None
 
 
@@ -192,44 +202,49 @@ def composite_tiles_plain(attrs, n_tiles: int, n_tx: int, tile_h: int,
 
 # --------------------------------------------------------------- kernel
 def composite_forward(attrs, n_tiles: int, n_tx: int, tile_w: int):
-    """K5's forward kernel on a CUDA tensor attrs [NT, M, 11] f32."""
+    """K5's forward kernel on a CUDA tensor attrs [NT, M, 11] f32: rgb,
+    med, logt and the crossing slot (int32)."""
     NT, M, _ = attrs.shape
     rgb = torch.empty((NT, TILE_PIXELS, 3), dtype=torch.float32,
                       device=attrs.device)
     med = torch.empty((NT, TILE_PIXELS), dtype=torch.float32,
                       device=attrs.device)
     logt = torch.empty_like(med)
+    cross = torch.empty(med.shape, dtype=torch.int32, device=attrs.device)
     KERNEL.launch(kernels.ptr(attrs), kernels.ptr(rgb), kernels.ptr(med),
-                  kernels.ptr(logt), NT, n_tiles, M, n_tx, tile_w,
-                  kernels.stream_of(attrs))
-    return rgb, med, logt
+                  kernels.ptr(logt), kernels.ptr(cross), NT, n_tiles, M,
+                  n_tx, tile_w, kernels.stream_of(attrs))
+    return rgb, med, logt, cross
 
 
-def composite_backward(attrs, tot_rgb, g_rgb, g_logt, g_med, n_tiles: int,
-                       n_tx: int, tile_w: int):
+def composite_backward(attrs, tot_rgb, g_rgb, g_logt, g_med, cross,
+                       n_tiles: int, n_tx: int, tile_w: int):
     """K5's backward kernel on CUDA tensors: dattrs [NT, M, 11]."""
     dattrs = torch.empty_like(attrs)
     NT, M, _ = attrs.shape
     BWD_KERNEL.launch(kernels.ptr(attrs), kernels.ptr(tot_rgb),
                       kernels.ptr(g_rgb), kernels.ptr(g_logt),
-                      kernels.ptr(g_med), kernels.ptr(dattrs), NT, n_tiles,
-                      M, n_tx, tile_w, kernels.stream_of(attrs))
+                      kernels.ptr(g_med), kernels.ptr(cross),
+                      kernels.ptr(dattrs), NT, n_tiles, M, n_tx, tile_w,
+                      kernels.stream_of(attrs))
     return dattrs
 
 
 class _CompositeCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, attrs, n_tiles, n_tx, tile_w):
-        rgb, med, logt = composite_forward(attrs, n_tiles, n_tx, tile_w)
-        ctx.save_for_backward(attrs, rgb)
+        rgb, med, logt, cross = composite_forward(attrs, n_tiles, n_tx,
+                                                  tile_w)
+        ctx.save_for_backward(attrs, rgb, cross)
         ctx.dims = (n_tiles, n_tx, tile_w)
         return rgb, med, logt
 
     @staticmethod
     def backward(ctx, g_rgb, g_med, g_logt):
-        attrs, rgb = ctx.saved_tensors
+        attrs, rgb, cross = ctx.saved_tensors
         g_rgb, g_med, g_logt = _cotangents(rgb, g_rgb, g_med, g_logt)
-        d = composite_backward(attrs, rgb, g_rgb, g_logt, g_med, *ctx.dims)
+        d = composite_backward(attrs, rgb, g_rgb, g_logt, g_med, cross,
+                               *ctx.dims)
         return d, None, None, None
 
 

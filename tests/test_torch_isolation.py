@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ocrfdet_tpu")
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "bench_kernel_builds.py"]
 
 
 def _imported_roots(path: Path):
@@ -45,7 +46,7 @@ def test_importing_every_port_module_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, bench_kernel_builds\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -116,3 +117,16 @@ def test_chip_smoke_refuses_without_cuda():
                          timeout=300)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_bench_kernel_builds_refuses_without_cuda():
+    """bench_kernel_builds.py exits non-zero and prints no reading
+    without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, str(ROOT / "bench_kernel_builds.py"),
+                          str(ROOT)], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"builds"' not in res.stdout

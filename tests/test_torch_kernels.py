@@ -15,8 +15,8 @@ version's, so no out-of-view flag may flip); K2 rtol 1e-5 / atol 1e-5
 its own order; the kernel's own result is the same bits on every run);
 K3 rtol 1e-5 / atol 1e-5 of the
 output scale (the plain version sums the heights in its own order);
-K4 rtol 1e-5 / atol 1e-6 (the same products and sums, rounded
-separately in both). The backward kernels of K2, K3 and K4 add with
+K4's forward bit for bit (the same products and sums, rounded
+separately in both, in every specialisation). The backward kernels of K2, K3 and K4 add with
 fp32 atomics in a varying order: rtol 1e-5, atol 1e-5 of each
 gradient's scale, against the plain versions' autograd. K5 (forward and
 backward) against its plain version, which sums in the same 128-wide
@@ -380,7 +380,7 @@ def test_point_sample_kernel_matches_plain(dev, C):
     want = ps.point_sample_points_plain(*args)
     torch.cuda.synchronize()
     assert ps.KERNEL.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, want)
 
 
 def test_point_sample_kernel_rejects_bad_inputs_and_backward(dev):
@@ -409,6 +409,43 @@ def test_point_sample_backward_kernel_matches_plain(dev, C):
     got = _grads(ps.point_sample_points, (maps, px, py), (0,), cot)
     want = _grads(ps.point_sample_points_plain, (maps, px, py), (0,), cot)
     _assert_grads_close(got, want)
+
+
+def _kernel_names(fn, key):
+    """Names of the device kernels containing `key` that fn() launches."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if key in e.name}
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+def test_point_sample_forward_forms_are_bit_identical(dev, C):
+    """Every C specialisation of K4's forward gives the plain version's
+    bits on points on the image edges, outside it and in (-1, 0) on both
+    axes; for C = 4 the 16-byte form (aligned maps) and the scalar form
+    (a maps view 4 bytes past 16-byte alignment, which the launcher must
+    send to the scalar form) both do."""
+    maps, px, py = _ps_inputs(dev, seed=2, C=C, P=4999)
+    k = px.shape[1] // 8
+    py[:, 5 * k:6 * k] = torch.rand((px.shape[0], k), device=dev) - 1
+    px[:, 6 * k:7 * k] = -torch.rand((px.shape[0], k), device=dev)
+    py[:, 6 * k:7 * k] = -torch.rand((px.shape[0], k), device=dev)
+    want = ps.point_sample_points_plain(maps, px, py)
+    assert torch.equal(ps.point_sample_points(maps, px, py), want)
+    if C == 4:
+        buf = torch.empty(maps.numel() + 1, device=dev)
+        shifted = buf[1:].view(maps.shape)
+        shifted.copy_(maps)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+        assert torch.equal(ps.point_sample_points(shifted, px, py), want)
+        key = "point_sample_forward_kernel"
+        vec = _kernel_names(lambda: ps.point_sample_points(maps, px, py), key)
+        sca = _kernel_names(lambda: ps.point_sample_points(shifted, px, py),
+                            key)
+        assert len(vec) == len(sca) == 1 and vec != sca, (vec, sca)
+        assert "true" in vec.pop() and "false" in sca.pop()
 
 
 def _composite_inputs(dev, seed=0, T=12, n_tx=4, M=200):
@@ -477,6 +514,77 @@ def test_composite_kernel_rejects_bad_inputs(dev):
         ct.composite_tiles(attrs, 12, 4, 8, 16)
     with pytest.raises(ValueError, match="multiple"):
         ct.composite_tiles(attrs, 5, 4, 16, 16)
+
+
+def _composite_case(dev, kind):
+    """(attrs, g_rgb, g_med, g_logt, T, n_tx) of one K5 backward case."""
+    if kind == "m300":
+        return (*_composite_inputs(dev, seed=3, T=13, n_tx=5, M=300), 13, 5)
+    if kind == "m20":
+        return (*_composite_inputs(dev, seed=4, T=6, n_tx=3, M=20), 6, 3)
+    if kind == "dead_chunk":      # tile 3's second chunk is all dead
+        attrs, *cots = _composite_inputs(dev, seed=5, T=8, n_tx=4, M=300)
+        attrs[3, 128:256, 7] = 0.0
+        return (attrs, *cots, 8, 4)
+    if kind == "capped":          # opacity 1: alpha capped near the centre
+        attrs, *cots = _composite_inputs(dev, seed=6, T=8, n_tx=4, M=256)
+        attrs[:, ::3, 7] = 1.0
+        return (attrs, *cots, 8, 4)
+    # "crossing_at_chunk_start": in every tile, 64 wide flat Gaussians of
+    # chunk 0 leave T ~0.6 (the other 64 are dead) and slot 128 (chunk 1's
+    # first) takes it to ~0.3, so every pixel's median crosses there
+    T, n_tx, M = 4, 2, 256
+    attrs, *cots = _composite_inputs(dev, seed=7, T=T, n_tx=n_tx, M=M)
+    t = torch.arange(T, device=dev)
+    cx = ((t % n_tx) * 16 + 7.5)[:, None]
+    cy = ((t // n_tx) * 16 + 7.5)[:, None]
+    flat = attrs[:, :129]
+    flat[..., 0], flat[..., 1] = cx, cy
+    flat[..., 2], flat[..., 3], flat[..., 4] = 1e-4, 0.0, 1e-4
+    flat[..., 5] = 100.0
+    flat[..., 6] = torch.linspace(0.5, 0.9, 129, device=dev)
+    flat[:, :128, 7] = torch.where(torch.arange(128, device=dev) % 2 == 0,
+                                   0.0079, 0.0)
+    flat[:, 128, 7] = 0.5
+    attrs[:, 129:, 6] += 1.0
+    return (attrs, *cots, T, n_tx)
+
+
+@pytest.mark.parametrize("kind", ["m300", "m20", "dead_chunk", "capped",
+                                  "crossing_at_chunk_start"])
+def test_composite_backward_cases(dev, kind):
+    """K5's backward kernel against its plain version per stream, both
+    reading the plain forward's crossing slots (M not a multiple of 128,
+    M < 32, a tile whose second chunk is all dead, capped alpha, T
+    crossing 0.5 at a chunk's first slot; g_logt is never 0) and the same
+    bits on two runs. The forward kernel's crossing slots agree with the
+    plain forward's."""
+    attrs, g_rgb, g_med, g_logt, T, n_tx = _composite_case(dev, kind)
+    rgb, _, _, cross = ct.composite_forward_plain(attrs, T, n_tx, 16, 16)
+    args = (attrs, rgb, g_rgb, g_logt, g_med, cross, T, n_tx, 16)
+    before = ct.BWD_KERNEL.launches
+    got = ct.composite_backward(*args)
+    again = ct.composite_backward(*args)
+    want = ct.composite_backward_plain(*args[:-1], 16, 16)
+    torch.cuda.synchronize()
+    assert ct.BWD_KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    for i, name in enumerate(ct.STREAMS):
+        torch.testing.assert_close(
+            got[..., i], want[..., i], rtol=1e-4,
+            atol=1e-5 * max(1e-6, float(want[..., i].abs().max())),
+            msg=name)
+    kcross = ct.composite_forward(attrs, T, n_tx, 16)[3]
+    assert int((kcross != cross).sum()) <= max(1, cross.numel() // 10000)
+    if kind == "crossing_at_chunk_start":
+        assert bool((cross == 128).all()) and bool((kcross == 128).all())
+        ddep = want[..., 6]
+        assert bool((ddep[:, 128] != 0).all())
+        assert not bool(ddep[:, :128].any())
+    if kind == "capped":
+        q = ct._chunk_quantities(attrs[:, :ct.CHUNK], *ct._pixel_coords(
+            T, T, n_tx, 16, 16, dev))
+        assert bool((q["keep"] & (q["raw"] >= 0.99)).any())
 
 
 def test_tiny_ocrf_slice_through_the_kernels_matches_plain(dev,

@@ -301,6 +301,34 @@ def test_plain_composite_matches_jax_pallas(M):
         _close(a.grad[..., i], jgrad[k], rtol=1e-4, msg=k)
 
 
+@pytest.mark.parametrize("M", [200, 300])
+def test_plain_composite_crossing_slot_matches_walk(M):
+    """The plain forward's crossing slot (which the backward reads)
+    against a per-pixel walk in float64 over the plain version's alphas:
+    the first kept Gaussian after which T < 0.5, -1 if none; the median
+    is that Gaussian's depth (the slots are depth-sorted), 15 if none."""
+    attrs, _ = _composite_inputs(seed=1, M=M)
+    attrs[0, 20:, 7] = 0.0     # tile 0: 20 Gaussians, pixels that never cross
+    T_, n_tx = attrs.shape[0], 4
+    a = T(attrs)
+    _, med, _, cross = composite.composite_forward_plain(a, T_, n_tx, 16,
+                                                         16)
+    px, py = composite._pixel_coords(T_, T_, n_tx, 16, 16, a.device)
+    alpha = torch.cat([composite._chunk_quantities(
+        a[:, k0:k0 + composite.CHUNK], px, py)["alpha"]
+        for k0 in range(0, M, composite.CHUNK)], 1).double().numpy()
+    t_after = np.cumprod(1.0 - alpha, axis=1)               # [T, M, P]
+    crossed = (t_after < 0.5) & (alpha > 0)
+    want = np.where(crossed.any(1), crossed.argmax(1), -1)  # [T, P]
+    assert cross.dtype == torch.int32
+    np.testing.assert_array_equal(cross.numpy(), want)
+    has = want >= 0
+    assert 0 < has.sum() < has.size
+    dep = np.take_along_axis(attrs[..., 6], np.maximum(want, 0), 1)
+    np.testing.assert_array_equal(med.numpy()[has], dep[has])
+    assert (med.numpy()[~has] == composite.MEDIAN_DEPTH_DEFAULT).all()
+
+
 def _small_scene(n=60, seed=3):
     rng = np.random.default_rng(seed)
     means = np.stack([rng.uniform(-3, 3, n), rng.uniform(-1.5, 1.5, n),
