@@ -16,7 +16,9 @@ Phases, each printing a line:
      same bits on two runs; K4 must give its plain version's bits), and
      the backward kernels of K2, K3 and K4 at the training step's shapes
      (batch 2) on random cotangents, each vs its plain version's
-     autograd (K4's timed in three traces and with CUDA events);
+     autograd (K3's ordering equal to its plain version, the ordering
+     and the kernel timed apart, its longest row, the same bits on two
+     runs; K4's timed in three traces and with CUDA events);
   4. the BEVDepth slice (`ocrfdet_config(batch_size=1,
      with_ocrf=False)`) through `entry.infer` on a window of 30 requests
      after warm-up (2 K1 + 2 K2 launches per request), then one request
@@ -32,13 +34,14 @@ Phases, each printing a line:
      through `entry.train_step`: 3 warm-up steps (the first records K5's
      input streams), then a window of 10 timed steps with exactly 2
      launches of K1 and of each forward of K2-K4, 1 of each of their
-     backwards and 1 of K5's forward and backward per step (the key
-     frame alone is differentiated); every loss finite, no step skipped;
+     backwards (and of K3's backward ordering) and 1 of K5's forward and
+     backward per step (the key frame alone is differentiated); every
+     loss finite, no step skipped;
   7. K5 forward and backward on those recorded flagship streams vs its
-     plain version (the backward twice, the same bits; the bound's
+     plain version (each twice, the same bits; the bound's
      special-function term counted from the streams, beside the MUFU
-     instructions in the compiled code; an estimate of the backward's
-     issue slots per (warp, Gaussian) step);
+     instructions in the compiled code; an estimate of the forward's and
+     the backward's issue slots per (warp, Gaussian) step);
   8. one fp32 step at batch 1 from the same weights and batch with the
      kernels (three times), with the plain versions, with K2-K5 plain and
      K1's kernel, with each kernel alone plain, and with K1 and with K2
@@ -116,6 +119,26 @@ def device_ms_traces(fn, reps: int, warmup: int = 1) -> list:
     end.record()
     torch.cuda.synchronize()
     return [start.elapsed_time(end) / reps]
+
+
+def device_ms_by_kernel(fn, reps: int) -> dict:
+    """{device kernel or memset name: mean device ms per call of fn()} from
+    one torch.profiler trace of `reps` calls (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1].strip()
+            out[name] = out.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
 
 
 def bound(nbytes: float, flops: float):
@@ -528,9 +551,10 @@ def check_k2_bwd(cfg, dev):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def check_k3_bwd(cfg, dev, B=2):
-    """K3's backward at the training step's shape (batch 2: the key
-    frame's projection for both samples) on a random cotangent."""
+def k3_bwd_inputs(cfg, dev, B=2):
+    """K3's backward inputs at the training step's shape (batch 2: the
+    key frame's projection for both samples): (dep, ctx, pix, di, wv) as
+    `ht_pool_inputs` gives them, and a random cotangent [B, Nq, C]."""
     from ocrfdet_tpu_torch.ops import ht_pool as htp
 
     uvd, valid = flagship_projection(cfg, dev)
@@ -547,30 +571,66 @@ def check_k3_bwd(cfg, dev, B=2):
     ctx = torch.randn((B, N, h, w, C), generator=gen, device=dev)
     args = htp.ht_pool_inputs(depth, ctx, uvd, valid)
     cot = torch.randn((B, args[2].shape[3], C), generator=gen, device=dev)
+    return args, cot
+
+
+def check_k3_bwd(cfg, dev, B=2):
+    """K3's backward at the training step's shape (batch 2: the key
+    frame's projection for both samples) on a random cotangent: the
+    ordering (equal to its plain version), the kernel (the same bits on
+    two runs), timed apart and together, and the longest row."""
+    from ocrfdet_tpu_torch.ops import ht_pool as htp
+
+    args, cot = k3_bwd_inputs(cfg, dev, B)
+    dep, ctxf, pix, di, wv = args
+    Zh, Nq = pix.shape[2:]
+    D, C, hw = dep.shape[-1], ctxf.shape[-1], dep.shape[2]
     ddep, dctx = htp.ht_pool_points_backward(*args, cot)
-    (pdep, pctx), again = plain_grads(htp.ht_pool_points_plain, args,
-                                      (0, 1), cot)
+    again = htp.ht_pool_points_backward(*args, cot)
+    ends, order = htp.ht_pool_order(pix, di, wv, hw, D)
+    pends, porder = htp.ht_pool_order_plain(pix, di, wv, hw, D)
+    (pdep, pctx), plain_again = plain_grads(htp.ht_pool_points_plain, args,
+                                            (0, 1), cot)
     torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip((ddep, dctx), again))
+    ordered = bool(torch.equal(ends, pends)) and bool(
+        torch.equal(order[:porder.numel()], porder))
     (e1, s1, ok1), (e2, s2, ok2) = (close(ddep, pdep, 1e-5, 1e-5),
                                     close(dctx, pctx, 1e-5, 1e-5))
+    lengths = torch.diff(pends, prepend=pends.new_zeros(1))
+    longest, hit = int(lengths.max()), int((lengths > 0).sum())
     ms = device_ms(lambda: htp.ht_pool_points_backward(*args, cot), reps=20)
-    plain_ms = device_ms(again, reps=5)
-    n_valid = int(args[4].sum())
+    prep_ms = device_ms(lambda: htp.ht_pool_order(pix, di, wv, hw, D),
+                        reps=20)
+    kernel_ms = device_ms(lambda: htp.ht_pool_backward_ordered(
+        dep, ctxf, wv, cot, ends, order, Zh, Nq), reps=20)
+    parts = device_ms_by_kernel(
+        lambda: htp.ht_pool_order(pix, di, wv, hw, D), reps=20)
+    plain_ms = device_ms(plain_again, reps=5)
+    n_valid = int(wv.sum())
     moved = nbytes(*args, cot, ddep, dctx)
     bound_ms, bound_by = bound(moved, n_valid * (4 * C + 2))
-    ok = ok1 and ok2
+    ok = ok1 and ok2 and same and ordered
     log(f"[k3-bwd] ht_pool backward dout {tuple(cot.shape)} -> ddep "
         f"{tuple(ddep.shape)}, dctx {tuple(dctx.shape)}: max_abs_err ddep "
         f"{e1:.3e} (max {s1:.3f}), dctx {e2:.3e} (max {s2:.3f}) (tol rtol "
-        f"1e-5 atol 1e-5 x scale: {'ok' if ok else 'FAIL'}); kernel "
-        f"{ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, no library "
-        f"call; bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} "
-        f"MB, {n_valid} of {args[4].numel()} points valid)")
+        f"1e-5 atol 1e-5 x scale), run to run "
+        f"{'bitwise equal' if same else 'DIFFERENT'}, ordering "
+        f"{'equal to' if ordered else 'DIFFERENT from'} its plain version: "
+        f"{'ok' if ok else 'FAIL'}; ordering + kernel {ms:.4f} ms "
+        f"(ordering {prep_ms:.4f} ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; kernel {kernel_ms:.4f} ms), plain "
+        f"(autograd) {plain_ms:.4f} ms, no library call; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB, {n_valid} "
+        f"of {wv.numel()} points valid, {hit} of {lengths.numel()} rows "
+        f"hit, longest row {longest} points)")
     if not ok:
         raise AssertionError("K3 backward kernel disagrees with its plain "
-                             "version")
+                             "version or with itself")
     return dict(max_abs_err=max(e1, e2), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                prep_ms=prep_ms, kernel_ms=kernel_ms, longest_row=longest)
 
 
 def check_k4_bwd(cfg, dev, B=2):
@@ -705,12 +765,14 @@ ISSUE_PER_SM_CLOCK = 4          # warp-instructions issued per SM a clock
 def check_k5(attrs, T, n_tx):
     """K5 forward and backward on the flagship streams recorded in the
     training window (both samples' tiles, as the step launches them),
-    with random cotangents, vs the plain version; the backward twice
-    (the same bits)."""
+    with random cotangents, vs the plain version; forward and backward
+    twice (the same bits)."""
     from ocrfdet_tpu_torch.ops.splat import composite as ct
 
     dev = attrs.device
     rgb, med, logt, cross = ct.composite_forward(attrs, T, n_tx, 16)
+    fwd_same = all(torch.equal(x, y) for x, y in zip(
+        (rgb, med, logt, cross), ct.composite_forward(attrs, T, n_tx, 16)))
     prgb, pmed, plogt, pcross = ct.composite_forward_plain(attrs, T, n_tx,
                                                            16, 16)
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -729,7 +791,7 @@ def check_k5(attrs, T, n_tx):
     fwd = [close(rgb, prgb, 1e-4, 1e-5), close(logt, plogt, 1e-4, 1e-5)]
     flips = int((med - pmed).abs().gt(1e-5 * pmed.abs()).sum())
     cross_flips = int((cross != pcross).sum())
-    fwd_ok = (all(ok for *_, ok in fwd)
+    fwd_ok = (all(ok for *_, ok in fwd) and fwd_same
               and max(flips, cross_flips) <= med.numel() // 10000)
     bwd = {k: close(d[..., i], pd[..., i], 1e-4, 1e-5)
            for i, k in enumerate(ct.STREAMS)}
@@ -746,41 +808,47 @@ def check_k5(attrs, T, n_tx):
     bwd_plain = device_ms(lambda: ct.composite_backward_plain(
         *bwd_args[:-1], 16, 16), reps=2)
     # operations: ~15 per evaluated (pixel, live Gaussian) pair (offsets,
-    # power, exp, alpha, keep), ~12 more per kept pair forward (log1p,
-    # exp, weights, RGB, crossing) and ~45 backward (the suffix trick and
-    # ten chain-rule terms, their sums). Special functions (16 results a
-    # clock per SM at the card's maximum clock): what the function needs
-    # on these streams, one exp per pair inside its Gaussian's square
-    # (the only pairs that need it) and one more per kept pair, log1p
-    # forward, the suffix trick's reciprocal of 1 - alpha backward. The
+    # power, exp, alpha, keep), ~8 more per kept pair forward (weight,
+    # RGB, T's running product, crossing and median) and ~45 backward (the
+    # suffix trick and ten chain-rule terms, their sums). Special
+    # functions (16 results a clock per SM at the card's maximum clock):
+    # what the function needs on these streams, one exp per pair inside
+    # its Gaussian's square (the only pairs that need it), then forward
+    # one log per pixel (log T, T kept as a product) and backward one
+    # reciprocal of 1 - alpha per kept pair (the suffix trick). The
     # compiled code's MUFU instructions are printed beside it.
     clock = max_sm_clock_hz()
-    sfu_ms = (work["square"] + kept) / (
-        H100_SMS * MUFU_PER_SM_CLOCK * clock) * 1e3
-    fb_ops = bound(nbytes(attrs, rgb, med, logt), 15 * pairs + 12 * kept)
+    sfu_rate = H100_SMS * MUFU_PER_SM_CLOCK * clock
+    sfu_fwd = work["square"] + med.numel()
+    sfu_bwd = work["square"] + kept
+    fb_ops = bound(nbytes(attrs, rgb, med, logt), 15 * pairs + 8 * kept)
     bb_ops = bound(nbytes(attrs, prgb, g_rgb, g_logt, g_med, d),
                    15 * pairs + 45 * kept)
     mufu = {name: sass_mufu(k, fn) for name, k, fn in (
         ("forward", ct.KERNEL, "composite_forward_kernel"),
         ("backward", ct.BWD_KERNEL, "composite_backward_kernel"))}
 
-    def with_sfu(ops_bound):
+    def with_sfu(ops_bound, results):
         """(ms, bound_by, the term that sets it)"""
+        sfu_ms = results / sfu_rate * 1e3
         if sfu_ms > ops_bound[0]:
             return sfu_ms, "operations", "special functions"
-        return (*ops_bound, ops_bound[1])
-    fb, bb = with_sfu(fb_ops), with_sfu(bb_ops)
+        return (*ops_bound, "fp32" if ops_bound[1] == "operations"
+                else ops_bound[1])
+    fb, bb = with_sfu(fb_ops, sfu_fwd), with_sfu(bb_ops, sfu_bwd)
     # an estimate, not a measurement: the issue slots the measured time
     # holds at the maximum clock (the clock the card ran at is not read)
-    issue = bwd_ms * 1e-3 * H100_SMS * ISSUE_PER_SM_CLOCK * clock / steps
+    issue, fwd_issue = (x * 1e-3 * H100_SMS * ISSUE_PER_SM_CLOCK * clock
+                        / steps for x in (bwd_ms, fwd_ms))
     worst = max(bwd, key=lambda k: bwd[k][0] / bwd[k][1])
     log(f"[k5] composite_tiles attrs {tuple(attrs.shape)} ({live} live "
         f"slots; of their {pairs} pixel-Gaussian pairs {work['square']} "
         f"inside the 3-sigma square, {kept} kept): forward max_abs_err rgb "
         f"{fwd[0][0]:.3e} (max {fwd[0][1]:.3f}), logt {fwd[1][0]:.3e} (max "
         f"{fwd[1][1]:.3f}), median flips {flips}, crossing-slot flips "
-        f"{cross_flips} of {med.numel()} (tol rtol 1e-4 atol 1e-5 x scale, "
-        f"flips <= 1e-4: "
+        f"{cross_flips} of {med.numel()}, run to run "
+        f"{'bitwise equal' if fwd_same else 'DIFFERENT'} (tol rtol 1e-4 "
+        f"atol 1e-5 x scale, flips <= 1e-4, the same bits: "
         f"{'ok' if fwd_ok else 'FAIL'}); backward worst {worst} "
         f"{bwd[worst][0]:.3e} (max {bwd[worst][1]:.3e}) (tol rtol 1e-4 atol "
         f"1e-5 x scale per stream: {'ok' if bwd_ok else 'FAIL'}), run to "
@@ -789,13 +857,15 @@ def check_k5(attrs, T, n_tx):
         f"bound {fb[0]:.4f} ms by {fb[2]}; backward kernel {bwd_ms:.4f} "
         f"ms, plain {bwd_plain:.3f} ms, bound {bb[0]:.4f} ms by {bb[2]}; "
         f"no library call")
-    log(f"[k5] bound terms: special functions {sfu_ms:.4f} ms ("
-        f"{work['square'] + kept} results at {clock / 1e6:.0f} MHz), fp32 "
-        f"operations forward {fb_ops[0]:.4f} ms, backward "
-        f"{bb_ops[0]:.4f} ms; MUFU in the compiled code: forward "
-        f"{mufu['forward']}, backward {mufu['backward']}; backward "
-        f"{steps} (warp, live Gaussian) steps, an estimated {issue:.1f} "
-        f"issue slots per step (the measured time x {H100_SMS} SMs x "
+    log(f"[k5] bound terms: special functions forward "
+        f"{sfu_fwd / sfu_rate * 1e3:.4f} ms ({sfu_fwd} results), backward "
+        f"{sfu_bwd / sfu_rate * 1e3:.4f} ms ({sfu_bwd} results) at "
+        f"{clock / 1e6:.0f} MHz; fp32 operations forward {fb_ops[0]:.4f} "
+        f"ms, backward {bb_ops[0]:.4f} ms; MUFU in the compiled code: forward "
+        f"{mufu['forward']}, backward {mufu['backward']}; "
+        f"{steps} (warp of 32 pixels, live Gaussian) steps, an estimated "
+        f"{fwd_issue:.1f} (forward) and {issue:.1f} (backward) issue slots "
+        f"per step (the measured time x {H100_SMS} SMs x "
         f"{ISSUE_PER_SM_CLOCK} a clock at the assumed {clock / 1e6:.0f} "
         f"MHz)")
     for k, (e, s, ok) in bwd.items():
@@ -1277,7 +1347,10 @@ def main() -> int:
     kernel_list = [cvm.KERNEL, bp.KERNEL, bp.BWD_KERNEL, htp.KERNEL,
                    htp.BWD_KERNEL, ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL,
                    ct.BWD_KERNEL]
-    kernels.build(kernel_list + [cvm.ROW_LOADS_KERNEL])
+    # launch counts are also checked for K3's backward ordering, which is
+    # not one of the nine kernels
+    checked = kernel_list + [htp.ORDER_KERNEL]
+    kernels.build(checked + [cvm.ROW_LOADS_KERNEL])
     nms.native_library()
     sources = sorted({k.source for k in kernel_list})
     log(f"[build] {', '.join(sources)}, K1's load-counting build of "
@@ -1295,24 +1368,25 @@ def main() -> int:
              "ht_pool_bwd": check_k3_bwd(cfg, dev),
              "point_sample_bwd": check_k4_bwd(cfg, dev)}
     torch.cuda.empty_cache()
-    check_slice(lss_cfg, dev, "lss", eval_kernels[:2], kernel_list,
+    check_slice(lss_cfg, dev, "lss", eval_kernels[:2], checked,
                 n_requests=30)
     torch.cuda.empty_cache()
-    check_slice(cfg, dev, "ocrf", eval_kernels, kernel_list, n_requests=100)
+    check_slice(cfg, dev, "ocrf", eval_kernels, checked, n_requests=100)
     torch.cuda.empty_cache()
     # per training step: K1 and each forward of K2-K4 once per temporal
-    # frame, their backwards and K5 once (the key frame)
+    # frame, their backwards (K3's with its ordering) and K5 once (the key
+    # frame)
     per_step = {"cost_volume": 2, "bev_pool": 2, "ht_pool": 2,
                 "point_sample": 2, "bev_pool_bwd": 1, "ht_pool_bwd": 1,
-                "point_sample_bwd": 1, "composite_tiles": 1,
-                "composite_tiles_bwd": 1}
-    launches, recorded = check_training(dev, kernel_list, per_step)
+                "ht_pool_order": 1, "point_sample_bwd": 1,
+                "composite_tiles": 1, "composite_tiles_bwd": 1}
+    launches, recorded = check_training(dev, checked, per_step)
     torch.cuda.empty_cache()
     stats["composite_tiles"], stats["composite_tiles_bwd"] = check_k5(
         recorded["attrs"], recorded["dims"][0], recorded["dims"][1])
     del recorded
     torch.cuda.empty_cache()
-    check_fp32_step(dev, kernel_list)
+    check_fp32_step(dev, checked)
 
     rows = []
     for k in kernel_list:

@@ -5,8 +5,10 @@ port imports nothing of the JAX package. `ocrfdet_config()` is the
 flagship 2-frame ResNet-50 256x704 config and `tiny_config()` a
 CPU-runnable miniature for tests; the two must stay field-for-field
 equal to the JAX package's (tests/test_torch_modules.py checks it).
-Fields that only the JAX package reads (Pallas window sizes, renderer
-choice, mesh layout) are kept so that the two configs compare equal.
+Fields that only the JAX package reads (Pallas window sizes, mesh
+layout) are kept so that the two configs compare equal. The port reads
+`vt.renderer` ("dense": the exact compositor; "xla" and "pallas": the
+tiled renderer with kernel K5) and refuses a non-empty `vt.ablate`.
 """
 from __future__ import annotations
 

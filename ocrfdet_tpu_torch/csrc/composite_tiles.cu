@@ -25,26 +25,48 @@
 // dep; rad gets none. Every per-Gaussian gradient is a sum over the
 // tile's pixels.
 //
-// The Gaussians are walked in chunks of 128, as the Pallas kernel's grid
-// steps: within a chunk the forward's transmittance comes from a running
-// sum that starts at the chunk's carried log T, and the median from the
-// chunk's first crossing, so the forward and the plain version (which
-// mirrors the Pallas chunks with tensor ops) differ only in the order of
-// the sums inside a chunk.
+// The Gaussians are staged in chunks of 128, as the Pallas kernel's grid
+// steps, and the median follows those chunks (see the forward below);
+// the plain version mirrors the Pallas chunks with tensor ops.
 //
 // What bounds it on an H100: at flagship training shapes (1,408 tiles of
 // 16 x 16 pixels, M = 512) the forward must read the 11 streams (31.7
 // MB) and write rgb, med and logt (7.2 MB), ~12 us at 3.35 TB/s, and
-// evaluate up to 185 M (pixel, Gaussian) pairs at ~25 operations each,
-// exp and log1p among them on the special-function units (16 a clock per
-// SM): bound by operations; the backward about twice that. Design: one
-// block per tile, one thread per pixel (256).
-// The block stages each chunk's 128 x 11 attributes in shared memory
-// (one coalesced read of the tile's contiguous rows), and every thread
-// walks them front to back with its pixel's running log T, RGB, median
-// and `found` in registers. Dead slots (op == 0) are skipped by the whole
-// block at once (the same slot for every thread). A block owns its tile,
-// so no other block writes its slots.
+// evaluate 185 M (pixel, Gaussian) pairs, ~15 fp32 operations each and
+// ~8 more for each kept pair (weight, RGB, T's product, crossing), with
+// one exp on the special-function units (16 a clock per SM) for each
+// pair inside the Gaussian's 3-sigma square and one log per pixel:
+// bound by operations; the backward, with its reciprocal of 1 - alpha
+// for each kept pair and its chain rule, about twice that. Design: one block per tile. A block owns
+// its tile, so no other block writes its slots.
+//
+// The forward issues instructions at the card's limit, so its design
+// cuts instructions per (pixel, Gaussian) pair:
+// - Two pixels a thread (128 threads): the block stages each chunk's
+//   attributes in shared memory padded to 12 floats (one coalesced read
+//   of the tile's contiguous rows), and each Gaussian's 3 broadcast
+//   float4 loads, the dead-slot test (op == 0, the same for the whole
+//   block) and the loop serve two pixels.
+// - T carried as the running product of (1 - alpha) over the kept
+//   Gaussians, with its binary exponent kept aside (whenever T drops
+//   below 2^-64 it is scaled by 2^64, so it stays a normal number): no
+//   log1p and no second exp per kept pair, only the evaluation's expf
+//   (the correctly rounded one, so that the keep decisions are the
+//   plain version's). log T is taken once, at the end. The crossing test
+//   is T < 0.5 on the same product; once a chunk has crossed, each kept
+//   Gaussian of the chunk only lowers the chunk's nearest crossing
+//   depth (the plain version's min over the chunk's crossed Gaussians),
+//   and a pixel whose median is found skips the test. Colour stops at
+//   the first renormalisation (T < 2^-64, where the plain version's
+//   contributions are below 2^-64 of the colour).
+// - No branch per pixel: a pixel that does not keep the pair takes
+//   alpha 0, which leaves every accumulator as it was.
+// The median and the crossing slot follow the plain version's chunks of
+// 128: the median is the nearest depth among the kept Gaussians of the
+// first chunk in which T drops below 0.5, from the crossing on. T as a
+// product differs from the plain version's exp of a sum of log1p only in
+// rounding (~1e-6 relative), so a median flips only where T crosses 0.5
+// within that.
 //
 // The backward issues instructions at the card's limit (on the recorded
 // flagship streams every slot is live and 73% of the pairs are kept), so
@@ -81,7 +103,7 @@
 
 namespace {
 
-constexpr int kPix = 256;            // threads per block = pixels per tile
+constexpr int kPix = 256;            // pixels per tile (backward: a thread each)
 constexpr int kChunk = 128;          // Gaussians per chunk
 constexpr int kAttr = 11;            // mx my ca cb cc rad dep op cr cg cb_col
 constexpr int kGrad = 10;            // every attribute but rad
@@ -89,6 +111,16 @@ constexpr float kAlphaEps = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kMedianDefault = 15.0f;
 constexpr float kMedBig = 1e30f;
+
+// The forward: kFwdPix pixels a thread; T renormalised by 2^kRenormBits
+// whenever it drops below 2^-kRenormBits (one kept pair multiplies it by
+// at least 0.01, so it never leaves the normal range).
+constexpr int kFwdPix = 2;
+constexpr int kFwdThreads = kPix / kFwdPix;
+constexpr int kRenormBits = 64;
+constexpr float kRenorm = 0x1p-64f;
+constexpr float kRenormScale = 0x1p64f;
+constexpr double kLn2 = 0.69314718055994530942;
 
 // The backward's rounds (see the note at the top) and the blocks an SM
 // its registers must leave room for.
@@ -141,58 +173,99 @@ __device__ __forceinline__ float fast_rcp(float x) {
 
 // attrs [NT, M, 11]; rgb [NT, 256, 3]; med, logt [NT, 256]; cross
 // [NT, 256]: the slot of the Gaussian at which T first drops below 0.5
-// (the median's), -1 if none.
-__global__ void __launch_bounds__(kPix)
+// (the median's), -1 if none. kFwdThreads threads, kFwdPix pixels each:
+// thread i owns pixels i and i + kFwdThreads.
+__global__ void __launch_bounds__(kFwdThreads)
 composite_forward_kernel(const float* __restrict__ attrs,
                          float* __restrict__ rgb, float* __restrict__ med,
                          float* __restrict__ logt, int* __restrict__ cross,
                          int T, int M, int n_tx, int tile_w) {
-  __shared__ float s[kChunk * kAttr];
+  __shared__ float4 sq[kChunk * kQ / 4];   // [kChunk][kQ] attributes
+  float* s = reinterpret_cast<float*>(sq);
   const int64_t tg = blockIdx.x;
   const int t = (int)(tg % T);
-  const int p = threadIdx.x;
   const int tile_h = kPix / tile_w;
-  const float fx = (float)((t % n_tx) * tile_w + p % tile_w);
-  const float fy = (float)((t / n_tx) * tile_h + p / tile_w);
   const float* a = attrs + tg * M * kAttr;
 
-  float r = 0.f, g = 0.f, b = 0.f, log_t = 0.f, md = kMedianDefault;
-  bool found = false;
-  int slot = -1;
+  float fx[kFwdPix], fy[kFwdPix];
+  // tr: T in front of the next Gaussian, a running product of (1 - alpha)
+  // over the kept ones, times 2^ex; cs: 1 until the first renormalisation
+  // (T < 2^-64), then 0, so that colour stops where T is negligible
+  float r[kFwdPix], g[kFwdPix], b[kFwdPix], tr[kFwdPix], cs[kFwdPix];
+  float md[kFwdPix];
+  int ex[kFwdPix], slot[kFwdPix];
+  bool found[kFwdPix];
+#pragma unroll
+  for (int k = 0; k < kFwdPix; ++k) {
+    const int p = threadIdx.x + k * kFwdThreads;
+    fx[k] = (float)((t % n_tx) * tile_w + p % tile_w);
+    fy[k] = (float)((t / n_tx) * tile_h + p / tile_w);
+    r[k] = g[k] = b[k] = 0.f;
+    tr[k] = cs[k] = 1.f;
+    md[k] = kMedianDefault;
+    ex[k] = 0;
+    slot[k] = -1;
+    found[k] = false;
+  }
   for (int k0 = 0; k0 < M; k0 += kChunk) {
     const int n = min(kChunk, M - k0);
     __syncthreads();
-    for (int i = p; i < n * kAttr; i += kPix) s[i] = a[k0 * kAttr + i];
+    for (int i = threadIdx.x; i < n * kAttr; i += kFwdThreads)
+      s[(i / kAttr) * kQ + i % kAttr] = a[k0 * kAttr + i];
     __syncthreads();
-    float cum = 0.f;          // inclusive sum of log1p(-alpha) in the chunk
-    float mc = kMedBig;       // nearest crossing depth in the chunk
+    // per chunk, as the Pallas kernel's grid steps: whether T has dropped
+    // below 0.5 in this chunk (only while no earlier chunk crossed) and
+    // the nearest depth among the kept Gaussians from there on
+    bool crossed[kFwdPix];
+    float mc[kFwdPix];
+#pragma unroll
+    for (int k = 0; k < kFwdPix; ++k) {
+      crossed[k] = false;
+      mc[k] = kMedBig;
+    }
     for (int j = 0; j < n; ++j) {
-      const float* q = s + j * kAttr;
-      if (q[7] == 0.f) continue;  // dead slot: alpha 0 for every pixel
-      const Eval v = evaluate(q, fx, fy);
-      if (!v.keep) continue;
-      const float t_here = expf(__fadd_rn(log_t, cum));
-      cum = __fadd_rn(cum, log1pf(-v.alpha));
-      const float w = __fmul_rn(v.alpha, t_here);
-      r = __fadd_rn(r, __fmul_rn(w, q[8]));
-      g = __fadd_rn(g, __fmul_rn(w, q[9]));
-      b = __fadd_rn(b, __fmul_rn(w, q[10]));
-      if (expf(__fadd_rn(log_t, cum)) < 0.5f) {
-        mc = fminf(mc, q[6]);
-        if (slot < 0) slot = k0 + j;
+      const float4 q0 = sq[3 * j], q1 = sq[3 * j + 1], q2 = sq[3 * j + 2];
+      if (q1.w == 0.f) continue;  // dead slot: alpha 0 for every pixel
+      const float q[kAttr] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
+                              q1.z, q1.w, q2.x, q2.y, q2.z};
+#pragma unroll
+      for (int k = 0; k < kFwdPix; ++k) {
+        // without branches: a pixel that does not keep the pair takes
+        // alpha 0, which leaves every accumulator as it was
+        const Eval v = evaluate(q, fx[k], fy[k]);
+        const float ak = v.keep ? v.alpha : 0.f;
+        const float w = ak * tr[k] * cs[k];
+        r[k] = fmaf(w, q[8], r[k]);
+        g[k] = fmaf(w, q[9], g[k]);
+        b[k] = fmaf(w, q[10], b[k]);
+        tr[k] *= 1.f - ak;
+        crossed[k] = !found[k] && (crossed[k] || tr[k] < 0.5f);
+        if (crossed[k] && v.keep) mc[k] = fminf(mc[k], q[6]);
+        if (crossed[k] && slot[k] < 0) slot[k] = k0 + j;
+        if (tr[k] < kRenorm) {
+          tr[k] *= kRenormScale;
+          ex[k] += kRenormBits;
+          cs[k] = 0.f;
+        }
       }
     }
-    if (!found && mc < kMedBig) md = mc;
-    found = found || mc < kMedBig;
-    log_t = __fadd_rn(log_t, cum);
+#pragma unroll
+    for (int k = 0; k < kFwdPix; ++k) {
+      if (!found[k] && mc[k] < kMedBig) md[k] = mc[k];
+      found[k] = found[k] || mc[k] < kMedBig;
+    }
   }
-  const int64_t o = tg * kPix + p;
-  rgb[o * 3 + 0] = r;
-  rgb[o * 3 + 1] = g;
-  rgb[o * 3 + 2] = b;
-  med[o] = md;
-  logt[o] = log_t;
-  cross[o] = slot;
+#pragma unroll
+  for (int k = 0; k < kFwdPix; ++k) {
+    const int64_t o = tg * kPix + threadIdx.x + k * kFwdThreads;
+    rgb[o * 3 + 0] = r[k];
+    rgb[o * 3 + 1] = g[k];
+    rgb[o * 3 + 2] = b[k];
+    med[o] = md[k];
+    // log T = log(tr) - ex ln 2, tr in [2^-64 0.01, 1]
+    logt[o] = (float)((double)logf(tr[k]) - ex[k] * kLn2);
+    cross[o] = slot[k];
+  }
 }
 
 // tot_rgb, g_rgb [NT, 256, 3]; g_logt, g_med [NT, 256];
@@ -322,7 +395,7 @@ int composite_tiles_forward(const float* attrs, float* rgb, float* med,
   if (T <= 0 || n_tx <= 0 || tile_w <= 0 || kPix % tile_w)
     return (int)cudaErrorInvalidValue;
   if (NT > 0)
-    composite_forward_kernel<<<NT, kPix, 0,
+    composite_forward_kernel<<<NT, kFwdThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         attrs, rgb, med, logt, cross, T, M, n_tx, tile_w);
   return (int)cudaGetLastError();

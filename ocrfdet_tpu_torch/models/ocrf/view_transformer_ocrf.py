@@ -20,7 +20,8 @@ Per frame:
      samples [alpha, RGB] (the unnormalised images) as one C=4 map, the
      per-voxel Gaussian heads give scale, rotation and colour, one camera
      per sample (`render_cam`) is rendered by the tiled splat renderer
-     (kernel K5) with the augmentation folded into K, and by NeRF
+     (kernel K5; the exact dense compositor with `renderer="dense"`)
+     with the augmentation folded into K, and by NeRF
      compositing of its full-resolution feature, and `LearnedBlend`
      mixes the two.
 
@@ -45,7 +46,9 @@ from ...geometry import frustum as FR
 from ...geometry.cameras import splat_camera
 from ...ops.ht_pool import ht_pool
 from ...ops.point_sample import point_sample
-from ...ops.splat.preprocess import preprocess_gaussians, quat_scale_to_cov3d
+from ...ops.splat.preprocess import (Gaussians2D, preprocess_gaussians,
+                                     quat_scale_to_cov3d)
+from ...ops.splat.render_dense import render_gaussians_dense
 from ...ops.splat.render_tiled import render_gaussians_tiled
 from ..fpn import resize_bilinear
 from ..norm import BatchNorm2d
@@ -278,8 +281,16 @@ class OcRFViewTransformer(nn.Module):
                           zfar=cfg.zfar)
         cov3d = quat_scale_to_cov3d(rotation.float(), scaling.float())
         g = preprocess_gaussians(self.gauss_means, cov3d, sc)
-        img_g, dep_g, _ = render_gaussians_tiled(g, color.float(),
-                                                 opac.float(), H, W)
+        if cfg.renderer == "dense":
+            # the exact compositor, one sample at a time (no tile cap)
+            views = [render_gaussians_dense(
+                Gaussians2D(*(f[i] for f in g)), color[i].float(),
+                opac[i].float(), H, W) for i in range(B)]
+            img_g = torch.stack([v[0] for v in views])
+            dep_g = torch.stack([v[1] for v in views])
+        else:                       # "xla" or "pallas": tiled, kernel K5
+            img_g, dep_g, _ = render_gaussians_tiled(g, color.float(),
+                                                     opac.float(), H, W)
 
         # NeRF render of the chosen camera
         with towers():

@@ -12,9 +12,12 @@ with wv = valid as fp32. `ht_pool` is the wrapper of kernel K3
 forward): for CUDA tensors it launches the kernel, for CPU tensors it
 runs `ht_pool_points_plain`, the per-camera gather of the JAX
 `ht_pool_ref`. Both compute in fp32 from the same index streams. On
-CUDA the backward (ddep, dctx) launches K3's backward kernel
-(`BWD_KERNEL`); on the CPU it is the plain version's autograd. The index
-streams and wv get no gradient.
+CUDA the backward (ddep, dctx) orders the valid points by row, one row
+per (b, camera, pixel) (`ht_pool_order`, `ORDER_KERNEL`; its plain
+version is `ht_pool_order_plain`), then launches K3's backward kernel
+(`BWD_KERNEL`), one warp a row, which writes every value of ddep and
+dctx without atomics; on the CPU the backward is the plain version's
+autograd. The index streams and wv get no gradient.
 """
 from __future__ import annotations
 
@@ -32,7 +35,12 @@ BWD_KERNEL = kernels.Kernel(
     name="ht_pool_bwd", source="ht_pool.cu", symbol="ht_pool_backward",
     argtypes=[ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     replaces="ocrfdet_tpu/ops/ht_pool.py:118")   # _bwd_kernel
+ORDER_KERNEL = kernels.Kernel(     # the backward's ordering of the points
+    name="ht_pool_order", source="ht_pool.cu", symbol="ht_pool_order",
+    argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    replaces="ocrfdet_tpu/ops/ht_pool.py:118")   # _bwd_kernel
 MAX_C = 128     # channels the kernel keeps in registers (4 per lane)
+MAX_D = 2048    # depth bins the backward kernel keeps in shared memory
 
 
 def _indices(depth_shape, uvd, valid):
@@ -87,9 +95,65 @@ class _HtPoolCUDA(torch.autograd.Function):
         return ddep, dctx, None, None, None
 
 
+def ht_pool_order_plain(pix, di, wv, HW: int, D: int):
+    """Plain version of the backward's ordering, on any device: the
+    valid points (wv != 0) sorted by row r = (b * N + n) * HW + pix, then
+    by key = di * Zh * Nq + z * Nq + q. Returns (ends [B*N*HW] int32, the
+    inclusive end of every row's range in `order`; order [n_valid] int32,
+    the keys)."""
+    B, N, Zh, Nq = pix.shape
+    ZQ = Zh * Nq
+    dev = pix.device
+    valid = (wv != 0).reshape(B * N, ZQ)
+    row = (torch.arange(B * N, device=dev)[:, None] * HW
+           + pix.reshape(B * N, ZQ).long())
+    key = (di.reshape(B * N, ZQ).long() * ZQ
+           + torch.arange(ZQ, device=dev)[None, :])
+    row, key = row[valid], key[valid]
+    order = torch.sort(row * (D * ZQ) + key).values % (D * ZQ)
+    counts = torch.zeros(B * N * HW, dtype=torch.int64, device=dev)
+    counts.index_add_(0, row, torch.ones_like(row))
+    return (torch.cumsum(counts, 0).to(torch.int32),
+            order.to(torch.int32))
+
+
+def ht_pool_order(pix, di, wv, HW: int, D: int):
+    """The backward's ordering on CUDA tensors (`ORDER_KERNEL`): as
+    `ht_pool_order_plain`, with `order` of length B*N*Zh*Nq of which the
+    first ends[-1] entries are used. No host sync."""
+    B, N, Zh, Nq = pix.shape
+    R = B * N * HW
+    ends = torch.empty(R, dtype=torch.int32, device=pix.device)
+    counts = torch.empty_like(ends)
+    placed = torch.empty(pix.numel(), dtype=torch.int32, device=pix.device)
+    order = torch.empty_like(placed)
+    ORDER_KERNEL.launch(kernels.ptr(pix), kernels.ptr(di), kernels.ptr(wv),
+                        kernels.ptr(counts), kernels.ptr(ends),
+                        kernels.ptr(placed), kernels.ptr(order), B, N, HW, D,
+                        Zh, Nq, kernels.stream_of(pix))
+    return ends, order
+
+
+def ht_pool_backward_ordered(dep, ctx, wv, dout, ends, order, Zh: int,
+                             Nq: int):
+    """K3's backward kernel on CUDA tensors, given the ordering (ends,
+    order) of `ht_pool_order`: (ddep [B,N,HW,D], dctx [B,N,HW,C])."""
+    B, N, HW, D = dep.shape
+    C = ctx.shape[-1]
+    ddep = torch.empty_like(dep)
+    dctx = torch.empty_like(ctx)
+    BWD_KERNEL.launch(kernels.ptr(dep), kernels.ptr(ctx), kernels.ptr(wv),
+                      kernels.ptr(dout), kernels.ptr(ends),
+                      kernels.ptr(order), kernels.ptr(ddep),
+                      kernels.ptr(dctx), B, N, HW, D, C, Zh, Nq,
+                      kernels.stream_of(dep))
+    return ddep, dctx
+
+
 def ht_pool_points_backward(dep, ctx, pix, di, wv, grad_out):
-    """K3's backward kernel on CUDA tensors (the forward's inputs and
-    the cotangent dout [B,Nq,C]): (ddep [B,N,HW,D], dctx [B,N,HW,C])."""
+    """K3's backward on CUDA tensors (the forward's inputs and the
+    cotangent dout [B,Nq,C]): the ordering, then the kernel. Returns
+    (ddep [B,N,HW,D], dctx [B,N,HW,C])."""
     B, N, HW, D = dep.shape
     C = ctx.shape[-1]
     Zh, Nq = pix.shape[2], pix.shape[3]
@@ -97,13 +161,8 @@ def ht_pool_points_backward(dep, ctx, pix, di, wv, grad_out):
     if tuple(dout.shape) != (B, Nq, C):
         raise ValueError(f"ht_pool backward: dout {tuple(dout.shape)} != "
                          f"{(B, Nq, C)}")
-    ddep = torch.zeros_like(dep)
-    dctx = torch.zeros_like(ctx)
-    BWD_KERNEL.launch(kernels.ptr(dep), kernels.ptr(ctx), kernels.ptr(pix),
-                      kernels.ptr(di), kernels.ptr(wv), kernels.ptr(dout),
-                      kernels.ptr(ddep), kernels.ptr(dctx),
-                      B, N, HW, D, C, Zh, Nq, kernels.stream_of(dep))
-    return ddep, dctx
+    ends, order = ht_pool_order(pix, di, wv, HW, D)
+    return ht_pool_backward_ordered(dep, ctx, wv, dout, ends, order, Zh, Nq)
 
 
 def ht_pool_points(dep, ctx, pix, di, wv):
@@ -123,6 +182,10 @@ def ht_pool_points(dep, ctx, pix, di, wv):
                          f"dep {tuple(dep.shape)}")
     if not 0 < C <= MAX_C:
         raise ValueError(f"ht_pool: C {C} outside (0, {MAX_C}]")
+    if not 0 < D <= MAX_D or D * pix.shape[2] * pix.shape[3] >= 2 ** 31 \
+            or pix.numel() >= 2 ** 31:
+        raise ValueError(f"ht_pool: D {D} outside (0, {MAX_D}], or D x Zh "
+                         f"x Nq or the points past 2^31")
     for name, t, dtype in (("dep", dep, torch.float32),
                            ("ctx", ctx, torch.float32),
                            ("pix", pix, torch.int32),

@@ -29,7 +29,9 @@ GROUPS = (
     ("K2 bev_pool", ("bev_pool_chunk_kernel", "bev_pool_cells_kernel")),
     ("K2 bev_pool bwd", ("bev_pool_backward_kernel",)),
     ("K3 ht_pool", ("ht_pool_forward_kernel",)),
-    ("K3 ht_pool bwd", ("ht_pool_backward_kernel",)),
+    ("K3 ht_pool bwd", ("ht_pool_backward_kernel", "ht_pool_count_kernel",
+                        "ht_pool_scan_kernel", "ht_pool_place_kernel",
+                        "ht_pool_sort_kernel")),
     ("K4 point_sample", ("point_sample_forward_kernel",)),
     ("K4 point_sample bwd", ("point_sample_backward_kernel",)),
     ("K5 composite_tiles", ("composite_forward_kernel",)),

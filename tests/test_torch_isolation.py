@@ -86,8 +86,10 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    """Spatial sharding and the VGGT teacher (GeoEnhDet) are not ported;
-    training is, but an eval model (no render heads) refuses it."""
+    """Spatial sharding, the VGGT teacher (GeoEnhDet) and the profiling
+    ablations (`vt.ablate`) are not ported, and a renderer other than
+    "dense", "xla" and "pallas" is refused; training is ported, but an
+    eval model (no render heads) refuses it."""
     import dataclasses
     from ocrfdet_tpu_torch.config import VGGTTeacherConfig, tiny_config
     from ocrfdet_tpu_torch.data.synthetic import make_batch
@@ -105,6 +107,17 @@ def test_unported_options_raise():
         cfg.parallel, space_axis=2, shard_cameras=True))
     with pytest.raises(NotImplementedError, match="sharding"):
         OcRFDet(sharded)
+    for ablate in (("splat",), ("nerf", "hoa")):
+        cfg = tiny_config(with_ocrf=True)
+        with pytest.raises(NotImplementedError, match="ablate"):
+            OcRFDet(dataclasses.replace(cfg, vt=dataclasses.replace(
+                cfg.vt, ablate=ablate)))
+    with pytest.raises(ValueError, match="renderer"):
+        OcRFDet(dataclasses.replace(cfg, vt=dataclasses.replace(
+            cfg.vt, renderer="scan")))
+    for renderer in ("dense", "xla", "pallas"):
+        OcRFDet(dataclasses.replace(cfg, vt=dataclasses.replace(
+            cfg.vt, renderer=renderer)))
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -16,9 +16,12 @@ its own order; the kernel's own result is the same bits on every run);
 K3 rtol 1e-5 / atol 1e-5 of the
 output scale (the plain version sums the heights in its own order);
 K4's forward bit for bit (the same products and sums, rounded
-separately in both, in every specialisation). The backward kernels of K2, K3 and K4 add with
-fp32 atomics in a varying order: rtol 1e-5, atol 1e-5 of each
-gradient's scale, against the plain versions' autograd. K5 (forward and
+separately in both, in every specialisation). The backward kernels of
+K2 and K4 add with fp32 atomics in a varying order, K3's sums each
+row's points in a fixed order of its own (the same bits on every run):
+rtol 1e-5, atol 1e-5 of each gradient's scale, against the plain
+versions' autograd; K3's point ordering equals its plain version
+exactly. K5 (forward and
 backward) against its plain version, which sums in the same 128-wide
 chunks but in another order inside a chunk: rtol 1e-4, atol 1e-5 of
 each output's scale (the tolerance of tests/test_splat.py for the Pallas
@@ -355,6 +358,60 @@ def test_ht_pool_backward_kernel_matches_plain(dev, kw):
     _assert_grads_close(got, want)
 
 
+def _ht_bwd_case(dev, kind):
+    """(dep, ctx, pix, di, wv) of one K3 backward case."""
+    if kind == "b1":
+        return _ht_inputs(dev, seed=2, B=1)
+    if kind == "b2":
+        return _ht_inputs(dev, seed=3, B=2, Zh=5, Nq=700)
+    if kind == "c40":                      # C not a multiple of 32
+        return _ht_inputs(dev, seed=4, B=2, C=40, Nq=97)
+    if kind == "c7":
+        return _ht_inputs(dev, seed=5, C=7, D=5)
+    dep, ctx, pix, di, wv = _ht_inputs(dev, seed=6, B=2, Nq=150)
+    if kind == "empty_rows":               # 4 of 44 pixels hit, one
+        pix = (pix % 4) * 11               # camera with no valid point
+        wv[1, 2] = 0.0
+    if kind == "one_full_row":             # every point valid, one pixel
+        wv = torch.ones_like(wv)
+        pix = torch.full_like(pix, 17)
+    return dep, ctx, pix.contiguous(), di, wv.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["b1", "b2", "c40", "c7", "empty_rows",
+                                  "one_full_row"])
+def test_ht_pool_backward_cases(dev, kind):
+    """K3's backward (ordering and kernel) against the plain version's
+    autograd, the same bits on two runs; the ordering equals its plain
+    version (the valid points by row, then depth bin, then point);
+    batch 1 and 2, C = 40 and 7, rows with no point, one row holding
+    every point."""
+    args = _ht_bwd_case(dev, kind)
+    dep, ctx, pix, di, wv = args
+    HW, D = dep.shape[2:]
+    cot = torch.randn((dep.shape[0], pix.shape[3], ctx.shape[-1]),
+                      device=dev)
+    before = (htp.ORDER_KERNEL.launches, htp.BWD_KERNEL.launches)
+    got = htp.ht_pool_points_backward(*args, cot)
+    again = htp.ht_pool_points_backward(*args, cot)
+    torch.cuda.synchronize()
+    assert (htp.ORDER_KERNEL.launches, htp.BWD_KERNEL.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = _grads(htp.ht_pool_points_plain, args, (0, 1), cot)
+    _assert_grads_close(got, want)
+    ends, order = htp.ht_pool_order(pix, di, wv, HW, D)
+    pends, porder = htp.ht_pool_order_plain(pix, di, wv, HW, D)
+    assert torch.equal(ends, pends)
+    assert torch.equal(order[:porder.numel()], porder)
+    rows = torch.diff(pends, prepend=pends.new_zeros(1))
+    if kind == "empty_rows":
+        assert int((rows == 0).sum()) > rows.numel() // 2
+        assert not bool(got[1][1, 2].any()) and not bool(got[0][1, 2].any())
+    if kind == "one_full_row":
+        assert int(rows.max()) == pix[0, 0].numel()
+
+
 def _ps_inputs(dev, seed=0, BN=3, H=40, W=70, C=1, P=5000):
     """Maps and points over and around the image, with edge points in
     (-1, 0) and (W-1, W) and integer points."""
@@ -514,6 +571,52 @@ def test_composite_kernel_rejects_bad_inputs(dev):
         ct.composite_tiles(attrs, 12, 4, 8, 16)
     with pytest.raises(ValueError, match="multiple"):
         ct.composite_tiles(attrs, 5, 4, 16, 16)
+
+
+def _composite_forward_case(dev, kind):
+    """(attrs, T, n_tx) of one K5 forward case."""
+    if kind == "underflow":
+        # tile 0: 300 Gaussians over the whole tile at alpha 0.99, so
+        # that T falls far below the smallest fp32 number (log T ~ -1380)
+        attrs = _composite_inputs(dev, seed=8, T=4, n_tx=2, M=400)[0]
+        big = attrs[0, :300]
+        big[:, 0], big[:, 1] = 7.5, 7.5
+        big[:, 2], big[:, 3], big[:, 4] = 1e-4, 0.0, 1e-4
+        big[:, 5], big[:, 7] = 100.0, 1.0
+        return attrs, 4, 2
+    # "ragged_dead": M = 333 (not a multiple of 128), ~40% of the slots
+    # dead, tile 1's last 100 slots and tile 2's second chunk all dead
+    attrs = _composite_inputs(dev, seed=9, T=6, n_tx=3, M=333)[0]
+    g = torch.Generator(device=dev).manual_seed(9)
+    attrs[..., 7] *= (torch.rand(attrs.shape[:2], generator=g, device=dev)
+                      > 0.25).float()
+    attrs[1, 233:, 7] = 0.0
+    attrs[2, 128:256, 7] = 0.0
+    return attrs, 6, 3
+
+
+@pytest.mark.parametrize("kind", ["underflow", "ragged_dead"])
+def test_composite_forward_cases(dev, kind):
+    """K5's forward kernel against its plain version: rgb and log T at
+    rtol 1e-4 / atol 1e-5 of their scale, the median and the crossing
+    slot flipping on at most 1 pixel in 10^4 (at least 1), the same bits
+    on two runs; T underflowing in a tile (its log T still the sum of
+    the log1p terms), M not a multiple of 128 with dead slots."""
+    attrs, T, n_tx = _composite_forward_case(dev, kind)
+    before = ct.KERNEL.launches
+    got = ct.composite_forward(attrs, T, n_tx, 16)
+    again = ct.composite_forward(attrs, T, n_tx, 16)
+    want = ct.composite_forward_plain(attrs, T, n_tx, 16, 16)
+    torch.cuda.synchronize()
+    assert ct.KERNEL.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_composite_close(got[:3], want[:3])
+    assert int((got[3] != want[3]).sum()) <= max(1, got[3].numel() // 10000)
+    if kind == "underflow":
+        logt = want[2][0]
+        assert float(logt.max()) < -1000.0
+        assert bool(torch.isfinite(got[2]).all())
+        assert bool((want[3][0] >= 0).all())
 
 
 def _composite_case(dev, kind):

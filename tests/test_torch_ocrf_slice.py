@@ -202,3 +202,85 @@ def test_flagship_ocrf_slice_matches_jax():
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-3,
                                    atol=1e-3 * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.slow
+def test_flagship_ocrf_slice_with_jax_cost_volumes_matches_jax():
+    """The flagship case above with JAX's two stereo cost volumes (the key
+    frame's and the previous frame's) replayed as constants in both
+    packages: every output at (a)'s tolerance, which puts what the
+    stereo case leaves on the cost volume alone. There JAX's CPU cost
+    volume weights and sums the taps in bf16 (see the module docstring);
+    the port's, in fp32, is held after the softmax within 1e-3 of the
+    same formula accumulated in float64 (`cost_volume_plain` given the
+    coefficients in float64). Prints each volume's distances. Needs
+    ~7 GB of host memory and a few minutes."""
+    from unittest import mock
+
+    from ocrfdet_tpu.models import detector as jdetector
+    from ocrfdet_tpu_torch.models import detector as tdetector
+
+    jcfg = jconfig.ocrfdet_config(batch_size=1, compute_dtype="float32")
+    cfg = tconfig.ocrfdet_config(batch_size=1, compute_dtype="float32")
+    jmodel = JaxOcRFDet(jcfg)
+    jb = {k: jnp.asarray(v) for k, v in
+          jmake_batch(jcfg, batch_size=1, seed=0, with_targets=False).items()}
+    jb = dict(jb, with_prev=jnp.asarray(1.0))
+    v = jax.jit(lambda r, b: jmodel.init(r, b, train=False))(
+        jax.random.PRNGKey(0), jb)
+    v = perturbed({"params": v["params"], "batch_stats": v["batch_stats"]})
+
+    jrecorded, jstereo_cost_volume = [], jdetector.stereo_cost_volume
+
+    def jrecord(*args, **kw):
+        jrecorded.append(jstereo_cost_volume(*args, **kw))
+        return jrecorded[-1]
+
+    def jvolumes(v, b):
+        jrecorded.clear()
+        jmodel.apply(v, b, train=False)
+        return list(jrecorded)
+    with mock.patch.object(jdetector, "stereo_cost_volume", jrecord):
+        jcvs = [np.asarray(c) for c in jax.jit(jvolumes)(v, jb)]
+
+    def replay(volumes):
+        def f(*args, **kw):
+            f.calls += 1
+            return volumes[f.calls - 1]
+        f.calls = 0
+        return f
+    with mock.patch.object(jdetector, "stereo_cost_volume",
+                           replay([jnp.asarray(c) for c in jcvs])):
+        jpreds, jaux = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(
+            v, jb)
+
+    model = load_flax_variables(OcRFDet(cfg), v).eval()
+    tb = dict(entry.make_batch(cfg, seed=0, device="cpu"),
+              with_prev=torch.tensor(1.0))
+    calls = []
+
+    def trecord(*args):
+        calls.append((args, cost_volume.cost_volume_plain(*args)))
+        return calls[-1][1]
+    with torch.no_grad(), mock.patch.object(cost_volume, "cost_volume",
+                                            trecord):
+        model(tb)
+    rp = replay([torch.tensor(c) for c in jcvs])
+    with torch.no_grad(), mock.patch.object(tdetector, "stereo_cost_volume",
+                                            rp):
+        tpreds, taux = model(tb)
+    assert len(jcvs) == len(calls) == rp.calls == 2
+
+    _compare(dict(jout={1: (jpreds, jaux)}, tout={1: (tpreds, taux)}), 1,
+             rtol=1e-4, atol=1e-4)
+    for i, ((args, cost), jcv) in enumerate(zip(calls, jcvs)):
+        curr, prev, depths, az, bz, a2, b2, bias = args
+        f64 = torch.softmax(-cost_volume.cost_volume_plain(
+            curr, prev, depths.double(), az.double(), bz.double(),
+            a2.double(), b2.double(), bias).double(), dim=2).numpy()
+        d_port = np.abs(torch.softmax(-cost, dim=2).numpy() - f64)
+        d_jax = np.abs(jcv - f64)
+        print(f"cost volume {i}: port (fp32) vs float64 max {d_port.max():.3e}"
+              f" rms {np.sqrt((d_port ** 2).mean()):.3e}; JAX vs float64 max "
+              f"{d_jax.max():.3e} rms {np.sqrt((d_jax ** 2).mean()):.3e}")
+        assert d_port.max() <= 1e-3, i
