@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's K3 backward, K4 forward and K5 forward and
-backward from other source trees against this checkout's, on one NVIDIA
-GPU, each through its own tree's wrapper.
+"""Time the PyTorch port's K2 backward, K3 forward and backward, K4
+forward and K5 forward and backward from other source trees against
+this checkout's, on one NVIDIA GPU, each through its own tree's wrapper.
 
-    python3 bench_kernel_builds.py TREE [TREE ...]
+    python3 bench_kernel_builds.py [--k3-same-bits] TREE [TREE ...]
 
 Each TREE is a directory holding a whole `ocrfdet_tpu_torch/` package:
 a checkout of another commit (`git archive <commit> ocrfdet_tpu_torch |
@@ -12,14 +12,26 @@ modules are imported from there beside the checkout's, so each tree
 launches its kernels as its own wrappers do (whatever their entry
 points take, and with what the wrapper launches around the kernel) and
 builds them from its own sources into its own `build/`. Every tree's
-wrapper is first held to the plain version (K3 at rtol 1e-5, atol 1e-5
-x each gradient's scale, as chip_smoke.check_k3_bwd; K4 bit for bit; K5
+wrapper is first held to the plain version (K2's backward and K3's
+forward and backward at rtol 1e-5, atol 1e-5 x each output's scale, as
+chip_smoke.check_k2_bwd, check_k3 and check_k3_bwd; whether K3's
+forward gives the checkout's bits is logged, and `--k3-same-bits` makes
+a difference fatal, for trees whose K3 forward sums each pillar's
+heights and cameras in the plain version's order, as the
+one-warp-a-pillar forward before the staged design did; K4 bit for
+bit; K5
 per output or stream at rtol 1e-4, atol 1e-5 x its scale, the forward's
 median and crossing slot flipping on at most 1 pixel in 10^4 and its
 bits the same on two runs, as chip_smoke.check_k5), then timed A B B A:
 in the order checkout, trees, then in reverse, the mean of the two
 readings, each `chip_smoke.device_ms` (device time per call from
 torch.profiler):
+- K2's backward at the training step's shape (batch 2, LSS streams),
+  through each tree's `bev_pool_lss`: the time of its autograd backward
+  (the kernel and the few PyTorch operations around it, the same in
+  every tree), and each tree's device time by kernel once;
+- K3's forward at batch 1 and 2 (as chip_smoke.check_k3),
+  `ht_pool_points`;
 - K3's backward at the training step's shape (batch 2, as
   chip_smoke.check_k3_bwd), `ht_pool_points_backward`;
 - K4's forward at batch 2 with C = 4, on 16-byte aligned maps and on
@@ -46,8 +58,8 @@ import chip_smoke
 from chip_smoke import close, device_ms, log
 
 PKG = "ocrfdet_tpu_torch"
-WRAPPERS = {"k3": "ops.ht_pool", "k4": "ops.point_sample",
-            "k5": "ops.splat.composite"}
+WRAPPERS = {"k2": "ops.bev_pool", "k3": "ops.ht_pool",
+            "k4": "ops.point_sample", "k5": "ops.splat.composite"}
 
 
 def abba(cases: dict, reps: int) -> dict:
@@ -66,7 +78,7 @@ def _ours(modules) -> dict:
 
 
 def wrappers() -> dict:
-    """The wrapper modules {"k3"|"k4"|"k5": module} that `import PKG`
+    """The wrapper modules {"k2"|...|"k5": module} that `import PKG`
     finds, with every kernel of them built (in parallel)."""
     kernels = importlib.import_module(f"{PKG}.kernels")
     mods = {k: importlib.import_module(f"{PKG}.{m}")
@@ -95,6 +107,77 @@ def load_tree(tree: str) -> dict:
         for k in _ours(sys.modules):
             del sys.modules[k]
         sys.modules.update(saved)
+
+
+def time_k2_bwd(dev, trees: dict) -> dict:
+    """K2's backward through the autograd of each tree's `bev_pool_lss`
+    on the flagship LSS streams at batch 2."""
+    from unittest import mock
+
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.ops import bev_pool as bp
+
+    depth, feat, vox, valid, bev = chip_smoke.flagship_lss_inputs(
+        ocrfdet_config(batch_size=2), dev, 2, seed=11)
+
+    def graph(pool):
+        d, f = (t.detach().clone().requires_grad_() for t in (depth, feat))
+        return pool(d, f, vox, valid, bev), (d, f)
+    with mock.patch.object(bp, "lss_pool", bp.lss_pool_plain):
+        out, inputs = graph(bp.bev_pool_lss)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cot = torch.randn(out.shape, generator=gen, device=dev)
+    want = torch.autograd.grad(out, inputs, cot)
+    cases = {}
+    for name, m in trees.items():
+        out, inputs = graph(m["k2"].bev_pool_lss)
+        cases[name] = (lambda o=out, i=inputs: torch.autograd.grad(
+            o, i, cot, retain_graph=True))
+    for name, fn in cases.items():
+        got = fn()
+        torch.cuda.synchronize()
+        if not all(close(g, w, 1e-5, 1e-5)[2] for g, w in zip(got, want)):
+            raise AssertionError(f"K2 backward {name} disagrees with its "
+                                 f"plain version")
+        log(f"[builds] k2 backward {name} device ms by kernel: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        chip_smoke.device_ms_by_kernel(fn, 20).items()))
+    key = f"k2 backward through bev_pool_lss, out {tuple(out.shape)}"
+    results = {key: abba(cases, reps=20)}
+    log(f"[builds] {key} ms: {results[key]}")
+    return results
+
+
+def time_k3_fwd(dev, trees: dict, same_bits: bool = False) -> dict:
+    """K3's forward through each tree's `ht_pool_points` at batch 1 and
+    2, each held to the plain version; whether it gives the checkout's
+    bits is logged, and with `same_bits` required."""
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.ops import ht_pool as htp
+
+    results = {}
+    for B in (1, 2):
+        args = chip_smoke.k3_inputs(ocrfdet_config(batch_size=1), dev, B)
+        want = htp.ht_pool_points_plain(*args)
+        ours = trees["checkout"]["k3"].ht_pool_points(*args)
+        cases = {name: (lambda m=m: m["k3"].ht_pool_points(*args))
+                 for name, m in trees.items()}
+        for name, fn in cases.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if not close(got, want, 1e-5, 1e-5)[2]:
+                raise AssertionError(f"K3 forward {name} disagrees with its "
+                                     f"plain version at batch {B}")
+            same = torch.equal(got, ours)
+            log(f"[builds] k3 forward batch {B} {name}: "
+                f"{'the' if same else 'NOT the'} checkout's bits")
+            if same_bits and not same:
+                raise AssertionError(f"K3 forward {name} differs from the "
+                                     f"checkout's bits at batch {B}")
+        key = f"k3 forward batch {B}"
+        results[key] = abba(cases, reps=50)
+        log(f"[builds] {key} ms: {results[key]}")
+    return results
 
 
 def time_k3(dev, trees: dict) -> dict:
@@ -224,7 +307,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_kernel_builds: CUDA is not available", file=sys.stderr)
         return 1
-    if len(sys.argv) < 2:
+    args = sys.argv[1:]
+    same_bits = "--k3-same-bits" in args
+    args = [a for a in args if a != "--k3-same-bits"]
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
     dev = torch.device("cuda")
@@ -234,8 +320,9 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"[device] {smi}")
     trees = {"checkout": wrappers()}
-    trees.update((tree, load_tree(tree)) for tree in sys.argv[1:])
-    results = {}
+    trees.update((tree, load_tree(tree)) for tree in args)
+    results = time_k2_bwd(dev, trees)
+    results.update(time_k3_fwd(dev, trees, same_bits))
     for time in (time_k3, time_k4, time_k5):
         results.update(time(dev, trees))
     log(json.dumps({"device": smi, "builds": results}))

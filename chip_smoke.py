@@ -13,12 +13,17 @@ Phases, each printing a line:
      counts the tap rows it loads with its load-counting build, which
      must equal its design's rule; K2 times its preparation and its
      kernel apart, prints its longest cell interval and must give the
-     same bits on two runs; K4 must give its plain version's bits), and
-     the backward kernels of K2, K3 and K4 at the training step's shapes
-     (batch 2) on random cotangents, each vs its plain version's
-     autograd (K3's ordering equal to its plain version, the ordering
-     and the kernel timed apart, its longest row, the same bits on two
-     runs; K4's timed in three traces and with CUDA events);
+     same bits on two runs; K3 must give the same bits on two runs, is
+     timed beside F.embedding_bag and prints the index bytes it stages
+     and its valid points a pillar; K4 must give its plain version's
+     bits), and the backward kernels of K2, K3 and K4 at the training
+     step's shapes (batch 2) on random cotangents, each vs its plain
+     version's autograd (K2's by both ways of naming a pixel's points,
+     the LSS layout and the points sorted by pixel, each the same bits
+     on two runs and the two the same bits as each other; K3's ordering
+     equal to its plain version, the ordering and the kernel timed
+     apart, its longest row, the same bits on two runs; K4's timed in
+     three traces and with CUDA events);
   4. the BEVDepth slice (`ocrfdet_config(batch_size=1,
      with_ocrf=False)`) through `entry.infer` on a window of 30 requests
      after warm-up (2 K1 + 2 K2 launches per request), then one request
@@ -280,13 +285,13 @@ def check_k1(cfg, dev):
                             "row_loads_per_sample"))
 
 
-def flagship_pool_inputs(cfg, dev, B, seed):
-    """K2's point streams of the key frame of make_batch at batch B:
+def flagship_lss_inputs(cfg, dev, B, seed):
+    """The LSS splat's inputs of the key frame of make_batch at batch B:
+    (depth [B,N,D,fH,fW], feat [B,N,fH,fW,C], vox_idx, valid, bev_size),
     the frustum over the BEV grid, softmaxed random depth, random
     context."""
     from ocrfdet_tpu_torch.entry import make_batch
     from ocrfdet_tpu_torch.geometry import frustum as FR
-    from ocrfdet_tpu_torch.ops import bev_pool as bp
 
     batch = make_batch(cfg, seed=0, batch_size=B, device=dev)
     grid = cfg.grid
@@ -307,7 +312,14 @@ def flagship_pool_inputs(cfg, dev, B, seed):
     depth = torch.randn((B, N, D, fH, fW), generator=g,
                         device=dev).softmax(2)
     feat = torch.randn((B, N, fH, fW, C), generator=g, device=dev)
-    return bp.lss_points(depth, feat, vox, valid, (X, Y, 1))
+    return depth, feat, vox, valid, (X, Y, 1)
+
+
+def flagship_pool_inputs(cfg, dev, B, seed):
+    """K2's point streams of `flagship_lss_inputs` (`lss_points`)."""
+    from ocrfdet_tpu_torch.ops import bev_pool as bp
+
+    return bp.lss_points(*flagship_lss_inputs(cfg, dev, B, seed))
 
 
 def _k2_case(cfg, dev, B):
@@ -389,9 +401,10 @@ def flagship_projection(cfg, dev, B=1):
                              l2i, aug, cfg.data.input_size)
 
 
-def _k3_case(cfg, dev, B):
-    """K3 at flagship shape, batch B: the key frame's projection,
-    thresholded softmax depth, random context."""
+def k3_inputs(cfg, dev, B):
+    """K3's forward inputs at flagship shape, batch B: the key frame's
+    projection, thresholded softmax depth, random context, as
+    `ht_pool_inputs` gives them (dep, ctx, pix, di, wv)."""
     from ocrfdet_tpu_torch.ops import ht_pool as htp
 
     uvd, valid = flagship_projection(cfg, dev, B)
@@ -403,31 +416,81 @@ def _k3_case(cfg, dev, B):
     depth = torch.where(depth < cfg.vt.depth_threshold / D,
                         torch.zeros_like(depth), depth)
     ctx = torch.randn((B, N, h, w, C), generator=g, device=dev)
-    args = htp.ht_pool_inputs(depth, ctx, uvd, valid)
+    return htp.ht_pool_inputs(depth, ctx, uvd, valid)
+
+
+def k3_library(dep, ctx, pix, di, wv):
+    """K3's function as one PyTorch call, F.embedding_bag(mode="sum")
+    over ctx as [B*N*HW, C] rows, a bag per pillar with its points in
+    [n][z] order, weighted by wv x dep[pix, di] from one torch.gather.
+    Returns a closure (the index rearrangement built outside it)."""
+    import torch.nn.functional as F
+
+    B, N, HW, D = dep.shape
+    C = ctx.shape[-1]
+    Zh, Nq = pix.shape[2:]
+    bn = torch.arange(B * N, device=dep.device).reshape(B, N, 1, 1)
+    rows = bn * HW + pix.long()                     # [B, N, Zh, Nq]
+
+    def bags(x):                                    # -> [B*Nq, N*Zh]
+        return x.permute(0, 3, 1, 2).reshape(B * Nq, N * Zh).contiguous()
+    rows_b, wv_b = bags(rows), bags(wv)
+    dep_b = bags(rows * D + di.long())
+    dep_flat, ctx_flat = dep.reshape(-1), ctx.reshape(-1, C)
+
+    def library():
+        psw = torch.gather(dep_flat, 0, dep_b.reshape(-1)).reshape(
+            dep_b.shape) * wv_b
+        return F.embedding_bag(rows_b, ctx_flat, mode="sum",
+                               per_sample_weights=psw)
+    return library
+
+
+def _k3_case(cfg, dev, B):
+    """K3 at flagship shape, batch B, against its plain version and
+    F.embedding_bag; the index bytes it stages and the valid points a
+    pillar."""
+    from ocrfdet_tpu_torch.ops import ht_pool as htp
+
+    args = k3_inputs(cfg, dev, B)
     got = htp.ht_pool_points(*args)
+    again = htp.ht_pool_points(*args)
     want = htp.ht_pool_points_plain(*args)
+    library = k3_library(*args)
+    lib = library().reshape(want.shape)
     torch.cuda.synchronize()
     max_abs = float((got - want).abs().max())
     scale = float(want.abs().max())
+    same = bool(torch.equal(got, again))
     # the plain version sums the heights in its own order: rtol 1e-5,
-    # atol 1e-5 of the output scale
+    # atol 1e-5 of the output scale; so does embedding_bag
     ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale))
+    lib_err = float((lib - want).abs().max())
+    lib_ok = bool(torch.allclose(lib, want, rtol=1e-5, atol=1e-5 * scale))
     ms = device_ms(lambda: htp.ht_pool_points(*args), reps=50)
     plain_ms = device_ms(lambda: htp.ht_pool_points_plain(*args), reps=5)
+    library_ms = device_ms(library, reps=20)
     n_valid = int(args[4].sum())
+    C, pillars = args[1].shape[-1], B * args[2].shape[3]
+    staged = nbytes(*args[2:])
     moved = nbytes(*args, want)
     bound_ms, bound_by = bound(moved, n_valid * (2 * C + 1))
     log(f"[k3] ht_pool batch {B} {tuple(got.shape)}: max_abs_err "
         f"{max_abs:.3e} (max |out| {scale:.3f}; tol rtol 1e-5 atol 1e-5 x "
-        f"scale: {'ok' if ok else 'FAIL'}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, no library call; bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({moved / 1e6:.2f} MB, {n_valid} of "
-        f"{args[4].numel()} points valid)")
-    if not ok:
+        f"scale), run to run {'bitwise equal' if same else 'DIFFERENT'}: "
+        f"{'ok' if ok and same else 'FAIL'}; embedding_bag max_abs_err "
+        f"{lib_err:.3e} ({'ok' if lib_ok else 'FAIL'}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, gather + embedding_bag {library_ms:.4f} "
+        f"ms; bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB; "
+        f"index bytes staged {staged / 1e6:.2f} MB; {n_valid} of "
+        f"{args[4].numel()} points valid, {n_valid / pillars:.2f} of "
+        f"{args[4].numel() // pillars} a pillar)")
+    if not (ok and same and lib_ok):
         raise AssertionError(f"K3 kernel disagrees with its plain version "
-                             f"at batch {B}")
+                             f"or with itself, or embedding_bag with the "
+                             f"plain version, at batch {B}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def check_k3(cfg, dev):
@@ -502,23 +565,48 @@ def check_k4(cfg, dev):
 
 def check_k2_bwd(cfg, dev):
     """K2's backward at the training step's shape (batch 2) on a random
-    cotangent, vs the plain version's autograd."""
+    cotangent, vs the plain version's autograd, by both ways of naming a
+    pixel's points: the LSS layout (the model's path, timed as the
+    kernel's time) and the points sorted by pixel (the kernel timed apart
+    from its sort); each the same bits on two runs, and the two the same
+    bits as each other."""
     from ocrfdet_tpu_torch.ops import bev_pool as bp
 
     w, pix, cell, featp, cells = flagship_pool_inputs(cfg, dev, 2, seed=11)
-    B, C = w.shape[0], featp.shape[-1]
+    B, P = w.shape
+    npix, C = featp.shape[1:]
+    N = cfg.data.num_cams
+    layout = (N, P // npix, npix // N)
     gen = torch.Generator(device=dev).manual_seed(12)
     cot = torch.randn((B, cells, C), generator=gen, device=dev)
-    dw, dfeat = bp.bev_pool_points_backward(w, pix, cell, featp, cot, cells)
+
+    def lss():
+        return bp.bev_pool_points_backward(w, pix, cell, featp, cot, cells,
+                                           layout=layout)
+
+    def by_pixel():
+        return bp.bev_pool_points_backward(w, pix, cell, featp, cot, cells)
+    got = {"lss": (lss(), lss()), "sorted": (by_pixel(), by_pixel())}
     (pw, pfeat), again = plain_grads(bp.bev_pool_points_plain,
                                      (w, pix, cell, featp, cells), (0, 3),
                                      cot)
     torch.cuda.synchronize()
-    # atomics reorder fp32 sums: rtol 1e-5, atol 1e-5 of each scale
-    (e1, s1, ok1), (e2, s2, ok2) = (close(dw, pw, 1e-5, 1e-5),
-                                    close(dfeat, pfeat, 1e-5, 1e-5))
-    ms = device_ms(lambda: bp.bev_pool_points_backward(
-        w, pix, cell, featp, cot, cells), reps=20)
+    # another fp32 sum order than the plain autograd's: rtol 1e-5, atol
+    # 1e-5 of each scale
+    errs, ok = {}, True
+    for path, (first, second) in got.items():
+        (e1, s1, ok1), (e2, s2, ok2) = (close(first[0], pw, 1e-5, 1e-5),
+                                        close(first[1], pfeat, 1e-5, 1e-5))
+        same = all(map(torch.equal, first, second))
+        errs[path] = (e1, e2, same)
+        ok = ok and ok1 and ok2 and same
+    paths_same = all(map(torch.equal, got["lss"][0], got["sorted"][0]))
+    ok = ok and paths_same
+    ms = device_ms(lss, reps=20)
+    intervals = bp.cell_intervals(pix, npix)
+    sort_ms = device_ms(lambda: bp.cell_intervals(pix, npix), reps=20)
+    sorted_ms = device_ms(lambda: bp.bev_pool_backward(
+        w, cell, featp, cot, cells, intervals=intervals), reps=20)
     plain_ms = device_ms(again, reps=5)
     # yardstick: index_add_ of the precomputed weighted rows of g into
     # dfeat plus one gather of the feature rows (the dw dot products are
@@ -526,29 +614,39 @@ def check_k2_bwd(cfg, dev):
     keep = cell < cells
     bidx = torch.arange(B, device=dev)[:, None].expand_as(cell)[keep]
     rows = cot[bidx, cell[keep].long()] * w[keep][:, None]
-    pidx = (bidx * featp.shape[1] + pix[keep].long())
-    acc = torch.zeros((B * featp.shape[1], C), device=dev)
+    pidx = (bidx * npix + pix[keep].long())
+    acc = torch.zeros((B * npix, C), device=dev)
     flat = featp.reshape(-1, C)
     gidx = pidx[:, None].expand(-1, C)
     library_ms = (device_ms(lambda: acc.index_add_(0, pidx, rows), reps=20)
                   + device_ms(lambda: torch.gather(flat, 0, gidx), reps=20))
     n_valid = int(keep.sum())
-    moved = nbytes(w, pix, cell, featp, cot, dw, dfeat)
+    dw, dfeat = got["lss"][0]
+    # the timed LSS path names a pixel's points in closed form: pix is
+    # never read, so its bytes are not in the bound
+    moved = nbytes(w, cell, featp, cot, dw, dfeat)
     bound_ms, bound_by = bound(moved, 4 * C * n_valid)
-    ok = ok1 and ok2
     log(f"[k2-bwd] bev_pool backward g {tuple(cot.shape)} -> dw "
-        f"{tuple(dw.shape)}, dfeat {tuple(dfeat.shape)}: max_abs_err dw "
-        f"{e1:.3e} (max {s1:.3f}), dfeat {e2:.3e} (max {s2:.3f}) (tol rtol "
-        f"1e-5 atol 1e-5 x scale: {'ok' if ok else 'FAIL'}); kernel "
-        f"{ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, index_add_ + "
-        f"gather {library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-        f"({moved / 1e6:.2f} MB, {n_valid} of {w.numel()} points in the "
-        f"grid)")
+        f"{tuple(dw.shape)}, dfeat {tuple(dfeat.shape)}: "
+        + "; ".join(f"{path}: max_abs_err dw {e1:.3e} (max {pw.abs().max():.3f}),"
+                    f" dfeat {e2:.3e} (max {pfeat.abs().max():.3f}), run to "
+                    f"run {'bitwise equal' if same else 'DIFFERENT'}"
+                    for path, (e1, e2, same) in errs.items())
+        + f"; the two paths {'bitwise equal' if paths_same else 'DIFFERENT'}"
+        f" (tol rtol 1e-5 atol 1e-5 x scale): {'ok' if ok else 'FAIL'}; "
+        f"kernel (LSS layout) {ms:.4f} ms, kernel by sorted pixel "
+        f"{sorted_ms:.4f} ms + its sort {sort_ms:.4f} ms, plain (autograd) "
+        f"{plain_ms:.4f} ms, index_add_ + gather {library_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB, {n_valid} "
+        f"of {w.numel()} points in the grid)")
     if not ok:
         raise AssertionError("K2 backward kernel disagrees with its plain "
-                             "version")
-    return dict(max_abs_err=max(e1, e2), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                             "version, with itself or across its two "
+                             "index paths")
+    return dict(max_abs_err=max(max(e[:2]) for e in errs.values()), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, sorted_ms=sorted_ms,
+                sort_ms=sort_ms)
 
 
 def k3_bwd_inputs(cfg, dev, B=2):
@@ -959,8 +1057,8 @@ def _module_of(name: str) -> str:
 def check_fp32_step(dev, all_kernels):
     """One fp32 training step's losses and gradients at batch 1, from the
     same weights, batch and dropout masks, by several routes: every
-    kernel (three times: the atomics of the K2-K4 backwards add in a
-    varying order), every plain version (no kernel launched), K2-K5 plain
+    kernel (three times: the atomics of K4's backward add in a varying
+    order), every plain version (no kernel launched), K2-K5 plain
     with K1's kernel, each kernel alone plain, and K1's and K2's kernels
     jittered (`jittered`: a relative noise of one fp32 rounding on the
     output; K2's with three seeds). The three kernel runs set the
@@ -1126,7 +1224,7 @@ def _kernel_entries():
     from ocrfdet_tpu_torch.ops import point_sample as ps
     from ocrfdet_tpu_torch.ops.splat import composite as ct
     return {"K1": (cvm, "cost_volume", cvm.cost_volume_plain),
-            "K2": (bp, "bev_pool_points", bp.bev_pool_points_plain),
+            "K2": (bp, "lss_pool", bp.lss_pool_plain),
             "K3": (htp, "ht_pool_points", htp.ht_pool_points_plain),
             "K4": (ps, "point_sample_points", ps.point_sample_points_plain),
             "K5": (ct, "composite_tiles", ct.composite_tiles_plain)}
@@ -1167,8 +1265,8 @@ def jittered(name, dev, seed=JITTER_SEEDS[0]):
     eps = 2.0 ** -23
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def g(*args):
-        return _Jitter.apply(f(*args), eps, gen)
+    def g(*args, **kwargs):
+        return _Jitter.apply(f(*args, **kwargs), eps, gen)
     with mock.patch.object(mod, attr, g):
         yield
 

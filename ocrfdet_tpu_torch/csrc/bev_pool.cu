@@ -44,13 +44,41 @@
 // (perm -> point streams -> feat rows), so L2 latency and bandwidth bound
 // the two passes; the sort in cell_intervals costs more than both.
 //
-// Backward: one warp per point, its lanes over the channels: each lane
-// adds w * g[cell, c] into dfeat (an atomic, many points share a pixel)
-// and accumulates feat * g, which a warp shuffle reduces to the point's
-// dw; dw is written once, so it is deterministic (its sum order is
-// fixed), while dfeat's atomics make the order, and so the last bits,
-// vary from run to run. dfeat must be zeroed by the caller. Its bound is
-// the L2 atomic throughput (~40 M fp32 atomic adds at batch 2).
+// Backward: pixel-stationary, no atomics, no zero fill, the same bits on
+// every run. One warp owns one (b, pixel): it holds the pixel's feat row
+// in registers (lanes over the channels: a float4 each where C % 4 == 0,
+// else 4 channels 32 apart; blocks of 128 channels), walks the pixel's
+// points in ascending p, 32 at a time (one point a lane), finds those
+// whose cell lies in the grid with one __ballot_sync, gathers the g rows
+// of up to kBwdBatch of them before it uses the first, and for each adds
+// w * g into the pixel's dfeat row in registers (product and sum rounded
+// on their own, as the plain version's weighted rows) and takes dw =
+// <feat, g>: the batch's dot products are reduced together across the
+// warp (a transposed butterfly, 9 shuffles for 8 points), and each sum
+// goes back to the lane of its point. A point outside the grid gets dw =
+// 0 and adds nothing. The warp writes its dfeat row once and every dw
+// once. Which points belong to a pixel is named in one of two ways:
+// - the LSS layout (the model's path, `lss_points`): every (b, camera n,
+//   pixel hw) owns exactly the D points p = (n * D + d) * HW + hw, so
+//   nothing is sorted and pix is not read. A block takes kPixQ = 8
+//   consecutive pixels of one (b, n), a warp each, and lane j of a warp
+//   reads w and cell of bin d0 + j itself: the block's 8 warps read the
+//   same 32-byte sectors (8 neighbouring pixels), which L1 can serve
+//   after the first. Staging [32 bins][8 pixels] tiles through shared
+//   memory (one barrier a slab) was slower on an H100 at flagship
+//   shapes: 0.0667 against 0.0642 ms;
+// - any other pix stream: the caller sorts the points by pixel
+//   (`cell_intervals(pix, npix)`, the forward's stable sort keyed by
+//   pixel), and a warp walks perm[offsets[k]:offsets[k + 1]] of its key
+//   k = b * (npix + 1) + pixel; the points whose pix lies outside [0,
+//   npix) land in the last key of their sample, whose warp writes their
+//   dw = 0.
+// Both walk a pixel's points in ascending p with the same arithmetic, so
+// on LSS streams they give the same bits. What bounds it: the compulsory
+// traffic of the LSS path is ~28 MB at flagship shapes, batch 2 (w,
+// cell, dw, feat, dfeat, g; pix is not read), ~8.3 us at 3.35 TB/s;
+// each in-grid point (801 k of 997 k) gathers a 320-byte g row from L2,
+// 256 MB, which sets its time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -262,39 +290,216 @@ void launch_forward(const float* w, const int* pix, const int* cell,
   }
 }
 
-// g [B, cells, C]; dfeat [B, npix, C] (zeroed); dw [B, P].
-__global__ void __launch_bounds__(kThreads)
-bev_pool_backward_kernel(const float* __restrict__ w,
-                         const int* __restrict__ pix,
-                         const int* __restrict__ cell,
-                         const float* __restrict__ feat,
-                         const float* __restrict__ g,
-                         float* __restrict__ dfeat, float* __restrict__ dw,
-                         int B, int64_t P, int npix, int C, int cells) {
-  const int lane = threadIdx.x % kLanes;
-  const int64_t bp = (int64_t)blockIdx.x * kWarps + threadIdx.x / kLanes;
-  if (bp >= (int64_t)B * P) return;
-  const int cl = cell[bp];
-  const int px = pix[bp];
-  if (cl < 0 || cl >= cells || px < 0 || px >= npix) {
-    if (lane == 0) dw[bp] = 0.f;
-    return;
-  }
-  const int64_t b = bp / P;
-  const float wp = w[bp];
-  const float* grow = g + (b * cells + cl) * C;
-  const float* frow = feat + (b * npix + px) * C;
-  float* drow = dfeat + (b * npix + px) * C;
-  float acc = 0.f;
-  for (int c = lane; c < C; c += kLanes) {
-    const float gv = grow[c];
-    atomicAdd(drow + c, wp * gv);
-    acc += frow[c] * gv;
-  }
+constexpr int kPerLane = 4;    // channels a lane holds: blocks of 128
+constexpr int kBwdBatch = 8;   // g rows a backward warp has in flight
+constexpr int kPixQ = 8;       // pixels of an LSS backward block
+
+// The kPerLane channels a lane holds of a row of C: with VEC = 4 the
+// float4 at channel 4 * lane (C % 4 == 0, rows 16-byte aligned), with
+// VEC = 1 the channels lane + 32 k. Channels past C read as 0.
+template <int VEC>
+__device__ __forceinline__ void load_lane(const float* __restrict__ row,
+                                          int lane, int C, float x[4]) {
+  if (VEC == 4) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (4 * lane < C) v = __ldg(reinterpret_cast<const float4*>(row) + lane);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
 #pragma unroll
-  for (int s = kLanes / 2; s > 0; s /= 2)
-    acc += __shfl_down_sync(0xffffffffu, acc, s);
-  if (lane == 0) dw[bp] = acc;
+    for (int k = 0; k < kPerLane; ++k) {
+      const int c = lane + k * kLanes;
+      x[k] = c < C ? __ldg(row + c) : 0.f;
+    }
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_lane(float* __restrict__ row, int lane,
+                                           int C, const float x[4]) {
+  if (VEC == 4) {
+    if (4 * lane < C)
+      reinterpret_cast<float4*>(row)[lane] = make_float4(x[0], x[1], x[2],
+                                                         x[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int c = lane + k * kLanes;
+      if (c < C) row[c] = x[k];
+    }
+  }
+}
+
+// The warp's sums of 8 values at once: lane l returns the sum over the
+// 32 lanes of v[(l >> 2) & 7]. Each step halves the values a lane holds
+// (16, 8, 4 lanes apart), then two steps finish the sum; every value
+// meets the same tree of additions, whatever its slot.
+__device__ __forceinline__ float warp_sum8(float v[8]) {
+  const int lane = threadIdx.x % kLanes;
+#pragma unroll
+  for (int h = 4; h >= 1; h /= 2) {
+    const bool hi = lane & (4 * h);  // lane bit 4, 3, 2
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = hi ? v[i] : v[i + h];
+      const float keep = hi ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, 4 * h);
+    }
+  }
+  v[0] += __shfl_xor_sync(kFull, v[0], 2);
+  v[0] += __shfl_xor_sync(kFull, v[0], 1);
+  return v[0];
+}
+
+// One step of a pixel's walk: lane j holds one point (in ascending p
+// over the lanes), in the grid if `valid`, with weight wl and g row
+// `grow` (rows of C, channels from `g`'s first). Adds w * g[grow] to the
+// lane's dfeat channels `acc` point after point and returns lane j's
+// <f, g[grow]> over the block's channels (0 if not valid).
+template <int VEC>
+__device__ __forceinline__ float walk(bool valid, float wl, int grow,
+                                      const float* __restrict__ g, int C,
+                                      int Cb, int lane, const float f[4],
+                                      float acc[4]) {
+  unsigned mask = __ballot_sync(kFull, valid);
+  float mine = 0.f;
+  while (mask) {
+    int src[kBwdBatch];
+    float x[kBwdBatch][kPerLane];
+#pragma unroll
+    for (int u = 0; u < kBwdBatch; ++u) {
+      src[u] = mask ? __ffs(mask) - 1 : -1;
+      mask &= mask - 1;
+      const int r = __shfl_sync(kFull, grow, src[u] & (kLanes - 1));
+      if (src[u] >= 0) {
+        load_lane<VEC>(g + (int64_t)r * C, lane, Cb, x[u]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) x[u][k] = 0.f;
+      }
+    }
+    float part[kBwdBatch];
+#pragma unroll
+    for (int u = 0; u < kBwdBatch; ++u) {
+      const float w = __shfl_sync(kFull, wl, src[u] & (kLanes - 1));
+      part[u] = 0.f;
+      if (src[u] >= 0) {
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k)
+          acc[k] = __fadd_rn(acc[k], __fmul_rn(w, x[u][k]));
+        part[u] = fmaf(f[3], x[u][3], fmaf(f[2], x[u][2],
+                       fmaf(f[1], x[u][1], f[0] * x[u][0])));
+      }
+    }
+    const float s = warp_sum8(part);
+    int slot = -1;  // the batch slot of this lane's point
+#pragma unroll
+    for (int u = 0; u < kBwdBatch; ++u)
+      if (src[u] == lane) slot = u;
+    const float got = __shfl_sync(kFull, s, 4 * max(slot, 0));
+    if (slot >= 0) mine = got;
+  }
+  return mine;
+}
+
+// The LSS layout: w/cell/dw [B, N*D*HW] with point (n, d, hw) at (n * D
+// + d) * HW + hw and pixel n * HW + hw; feat/dfeat [B, N*HW, C]; g [B,
+// cells, C]. A block: kPixQ pixels of one (b, n), a warp each; lane j
+// takes bin d0 + j of a slab of 32 bins, the next slab's w and cell
+// loaded while this one is walked.
+template <int VEC>
+__global__ void __launch_bounds__(kPixQ * kLanes)
+bev_pool_backward_lss_kernel(const float* __restrict__ w,
+                             const int* __restrict__ cell,
+                             const float* __restrict__ feat,
+                             const float* __restrict__ g,
+                             float* __restrict__ dfeat,
+                             float* __restrict__ dw, int N, int D, int HW,
+                             int C, int cells) {
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int tiles = (HW + kPixQ - 1) / kPixQ;
+  const int bn = blockIdx.x / tiles;  // b * N + n
+  const int hw0 = (blockIdx.x - bn * tiles) * kPixQ;
+  const int b = bn / N;
+  // point d of this warp's pixel at base + d * HW
+  const int64_t base = (int64_t)bn * D * HW + hw0 + warp;
+  if (hw0 + warp >= HW) return;  // uniform across the warp
+  const int64_t frow = ((int64_t)bn * HW + hw0 + warp) * C;
+  for (int c0 = 0; c0 < C; c0 += kPerLane * kLanes) {
+    const int Cb = min(C - c0, kPerLane * kLanes);
+    float f[kPerLane], acc[kPerLane];
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) f[k] = acc[k] = 0.f;
+    load_lane<VEC>(feat + frow + c0, lane, Cb, f);
+    float wn = 0.f;
+    int cn = -1;
+    if (lane < D) {
+      wn = __ldg(w + base + (int64_t)lane * HW);
+      cn = __ldg(cell + base + (int64_t)lane * HW);
+    }
+    for (int d0 = 0; d0 < D; d0 += kLanes) {
+      const float wl = wn;
+      const int c = cn;
+      const int d = d0 + lane;
+      if (d + kLanes < D) {
+        wn = __ldg(w + base + (int64_t)(d + kLanes) * HW);
+        cn = __ldg(cell + base + (int64_t)(d + kLanes) * HW);
+      }
+      const bool valid = d < D && c >= 0 && c < cells;
+      float part = walk<VEC>(valid, wl, b * cells + c, g + c0, C, Cb, lane,
+                             f, acc);
+      if (d < D) {
+        float* o = dw + base + (int64_t)d * HW;
+        *o = c0 > 0 ? *o + part : part;
+      }
+    }
+    store_lane<VEC>(dfeat + frow + c0, lane, Cb, acc);
+  }
+}
+
+// Any pix stream: w/cell/dw [B*P]; perm/offsets = cell_intervals(pix,
+// npix) (key b * (npix + 1) + pixel, pix outside [0, npix) as npix);
+// feat/dfeat [B, npix, C]; g [B, cells, C]. One warp a key.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+bev_pool_backward_sorted_kernel(const float* __restrict__ w,
+                                const int* __restrict__ cell,
+                                const int64_t* __restrict__ perm,
+                                const int* __restrict__ offsets,
+                                const float* __restrict__ feat,
+                                const float* __restrict__ g,
+                                float* __restrict__ dfeat,
+                                float* __restrict__ dw, int B, int npix,
+                                int C, int cells) {
+  const int lane = threadIdx.x % kLanes;
+  const int64_t k = (int64_t)blockIdx.x * kWarps + threadIdx.x / kLanes;
+  if (k >= (int64_t)B * (npix + 1)) return;  // uniform across the warp
+  const int b = (int)(k / (npix + 1));
+  const int px = (int)(k - (int64_t)b * (npix + 1));
+  const bool in = px < npix;  // the last key holds the pixels past npix
+  const int start = offsets[k], end = offsets[k + 1];
+  const int64_t frow = ((int64_t)b * npix + px) * C;
+  for (int c0 = 0; c0 < C; c0 += kPerLane * kLanes) {
+    const int Cb = min(C - c0, kPerLane * kLanes);
+    float f[kPerLane], acc[kPerLane];
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) f[i] = acc[i] = 0.f;
+    if (in) load_lane<VEC>(feat + frow + c0, lane, Cb, f);
+    for (int s = start; s < end; s += kLanes) {
+      const int j = s + lane;
+      int64_t p = 0;
+      int c = -1;
+      float wl = 0.f;
+      if (j < end) {
+        p = perm[j];
+        c = cell[p];
+        if (in && c >= 0 && c < cells) wl = w[p];
+      }
+      const bool valid = j < end && in && c >= 0 && c < cells;
+      float part = walk<VEC>(valid, wl, b * cells + c, g + c0, C, Cb, lane,
+                             f, acc);
+      if (j < end) dw[p] = c0 > 0 ? dw[p] + part : part;
+    }
+    if (in) store_lane<VEC>(dfeat + frow + c0, lane, Cb, acc);
+  }
 }
 
 }  // namespace
@@ -332,17 +537,41 @@ int bev_pool_forward(const float* w, const int* pix, const int* cell,
   return (int)cudaGetLastError();
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
-int bev_pool_backward(const float* w, const int* pix, const int* cell,
-                      const float* feat, const float* g, float* dfeat,
-                      float* dw, int B, int64_t P, int npix, int C,
-                      int cells, void* stream) {
-  const int64_t points = (int64_t)B * P;
-  if (points > 0) {
-    const unsigned blocks = (unsigned)((points + kWarps - 1) / kWarps);
-    bev_pool_backward_kernel<<<blocks, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        w, pix, cell, feat, g, dfeat, dw, B, P, npix, C, cells);
+// The backward: dw [B*P] and dfeat [B, npix, C], every value written
+// (no zeroing). With perm == NULL the points are in the LSS layout (N, D,
+// HW): P = N * D * HW, npix = N * HW, and pix is not read; else perm
+// [B*P] int64 and offsets [B*(npix+1) + 1] int32 are cell_intervals(pix,
+// npix). Returns cudaGetLastError() after the launch (0 on success),
+// cudaErrorInvalidValue for a layout that does not match P and npix.
+int bev_pool_backward(const float* w, const int* cell, const int64_t* perm,
+                      const int* offsets, const float* feat, const float* g,
+                      float* dfeat, float* dw, int B, int64_t P, int npix,
+                      int C, int cells, int N, int D, int HW, void* stream) {
+  if (C <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = C % 4 == 0 && ((reinterpret_cast<uintptr_t>(feat) |
+                                    reinterpret_cast<uintptr_t>(g) |
+                                    reinterpret_cast<uintptr_t>(dfeat)) %
+                                   16) == 0;
+  if (perm == nullptr) {
+    if (N <= 0 || D <= 0 || HW <= 0 || (int64_t)N * D * HW != P ||
+        (int64_t)N * HW != npix)
+      return (int)cudaErrorInvalidValue;
+    const int64_t blocks = (int64_t)B * N * ((HW + kPixQ - 1) / kPixQ);
+    if (blocks > 0) {
+      auto kernel = vec4 ? bev_pool_backward_lss_kernel<4>
+                         : bev_pool_backward_lss_kernel<1>;
+      kernel<<<(unsigned)blocks, kPixQ * kLanes, 0, s>>>(
+          w, cell, feat, g, dfeat, dw, N, D, HW, C, cells);
+    }
+  } else {
+    const int64_t keys = (int64_t)B * (npix + 1);
+    if (keys > 0) {
+      auto kernel = vec4 ? bev_pool_backward_sorted_kernel<4>
+                         : bev_pool_backward_sorted_kernel<1>;
+      kernel<<<(unsigned)((keys + kWarps - 1) / kWarps), kThreads, 0, s>>>(
+          w, cell, perm, offsets, feat, g, dfeat, dw, B, npix, C, cells);
+    }
   }
   return (int)cudaGetLastError();
 }

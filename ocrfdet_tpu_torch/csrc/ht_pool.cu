@@ -15,21 +15,37 @@
 // the plain version read identical index streams.
 //
 // What bounds it on an H100: at flagship shapes (6 cameras, 704 feature
-// pixels, 118 bins, 80 channels, 13 heights x 16,384 pillars) it must
-// move ~24 MB: the three 4-byte index streams (15.3 MB), dep (2.0 MB),
-// ctx (1.4 MB) and out (5.2 MB), ~7 us at 3.35 TB/s, and do ~25 M fp32
-// multiply-adds: bound by bytes. The Pallas kernel built one-hot
+// pixels, 118 bins, 80 channels, 13 heights x 16,384 pillars, batch 2)
+// it must move ~48 MB: the three 4-byte index streams (30.7 MB), dep
+// (4.0 MB), ctx (2.7 MB) and out (10.5 MB), ~14 us at 3.35 TB/s, and do
+// ~63 M fp32 operations: bound by bytes. The Pallas kernel built one-hot
 // matrices for the MXU; on Hopper the gather is cheap because dep and
-// ctx (3.4 MB) stay in L2. Design: output-stationary, no atomics, so the
-// result is deterministic. One warp owns one pillar q and its lanes run
-// over the channels (up to 4 per lane, C <= 128). The warp walks the
-// cameras and heights in order, reads the index triple once per point
-// (the same address for all lanes: one broadcast transaction) and, where
-// wv != 0, the scalar dep[pix, di] and the coalesced row ctx[pix, :].
-// It sums the heights of one camera, then adds that to the running sum
-// over cameras, in the plain version's order. Products and sums are
-// rounded separately (no FMA contraction), as the plain version's
-// separate tensor ops are.
+// ctx stay in L2, and what costs is finding the valid points: only ~12
+// of a pillar's 78 (15%) are valid.
+//
+// Forward: output-stationary, no atomics, the same bits on every run and
+// the same bits as the first design (one warp walking a pillar's points
+// one at a time). A block owns kTileQ consecutive pillars of one sample
+// (fewer when the staged tile would not fit in 48 KB). It first stages
+// the tile's [N * Zh][Q] slices of wv, pix and di in shared memory with
+// 16-byte cp.async copies (4-byte ones where Nq % 4 != 0; the tail past
+// Nq is zero-filled, so it reads as invalid): every index byte is read
+// once, in whole sectors, with no dependent load. All cameras are staged
+// at once (18.7 KB at flagship shapes), so that no barrier falls between
+// the cameras; the other blocks resident on the SM (4, by registers)
+// overlap a block's staging with their gathers. Then each warp takes
+// a pillar of the tile: its lanes look at 32 points at a time in [n][z]
+// order, one __ballot_sync finds the valid ones, each valid lane loads
+// its own dep[pix, di], and the warp issues the ctx rows of up to
+// kFwdBatch valid points before it adds the first (lanes over the
+// channels: a float4 each where C % 4 == 0, else 4 channels 32 apart).
+// It sums in the plain version's order: per camera over z ascending,
+// each product and each sum rounded on its own (no FMA contraction), then
+// acc += sub over the cameras in order. A camera with no valid point
+// would add +0.0, which changes no bit of acc (acc starts at +0.0 and so
+// is never -0.0), so it is skipped. Two other shapes were slower for want
+// of registers (fewer warps an SM): a warp looking at 96 points at once
+// (113 registers) and two pillars a warp at 16 lanes x 5 channels (127).
 //
 // Backward: pixel-stationary, no float atomics. The points are first
 // ordered by row, a row being one (b, camera, pixel) (`ht_pool_order`:
@@ -66,58 +82,174 @@
 
 namespace {
 
-constexpr int kWarps = 8;     // pillars per block of the forward kernel
-constexpr int kRowWarps = 4;  // rows per block of the sort and backward
 constexpr int kLanes = 32;
-constexpr int kPerLane = 4;  // channels per lane: C <= 128
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPerLane = 4;    // channels per lane: C <= 128
+constexpr int kTileQ = 16;     // pillars a forward block stages at most
+constexpr int kFwdWarps = 8;   // warps of a forward block
+constexpr int kFwdBatch = 8;   // ctx rows a forward warp has in flight
+constexpr int kRowWarps = 4;   // rows per block of the sort and backward
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+// The kPerLane channels a lane holds of a row of C: with VEC = 4 the
+// float4 at channel 4 * lane (C % 4 == 0, rows 16-byte aligned), with
+// VEC = 1 the channels lane + 32 k. Channels past C read as 0.
+template <int VEC>
+__device__ __forceinline__ void load_lane(const float* __restrict__ row,
+                                          int lane, int C, float x[4]) {
+  if (VEC == 4) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (4 * lane < C) v = __ldg(reinterpret_cast<const float4*>(row) + lane);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int c = lane + k * kLanes;
+      x[k] = c < C ? __ldg(row + c) : 0.f;
+    }
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_lane(float* __restrict__ row, int lane,
+                                           int C, const float x[4]) {
+  if (VEC == 4) {
+    if (4 * lane < C)
+      reinterpret_cast<float4*>(row)[lane] = make_float4(x[0], x[1], x[2],
+                                                         x[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int c = lane + k * kLanes;
+      if (c < C) row[c] = x[k];
+    }
+  }
+}
 
 // dep [B,N,HW,D]; ctx [B,N,HW,C]; pix/di/wv [B,N,Zh,Nq]; out [B,Nq,C].
-__global__ void __launch_bounds__(kWarps * kLanes)
+// A block: Q pillars of one sample; dynamic shared memory 3 x N*Zh rows
+// of Q + 4 words (wv, pix, di).
+template <int VEC>
+__global__ void __launch_bounds__(kFwdWarps * kLanes)
 ht_pool_forward_kernel(const float* __restrict__ dep,
                        const float* __restrict__ ctx,
                        const int* __restrict__ pix,
                        const int* __restrict__ di,
                        const float* __restrict__ wv,
-                       float* __restrict__ out, int B, int N, int HW, int D,
-                       int C, int Zh, int Nq) {
-  const int lane = threadIdx.x % kLanes;
-  const int64_t item = (int64_t)blockIdx.x * kWarps + threadIdx.x / kLanes;
-  if (item >= (int64_t)B * Nq) return;
-  const int b = (int)(item / Nq);
-  const int q = (int)(item - (int64_t)b * Nq);
+                       float* __restrict__ out, int N, int HW, int D, int C,
+                       int Zh, int Nq, int Q, int copy16) {
+  extern __shared__ __align__(16) float staged[];
+  const int NZ = N * Zh, S = Q + 4;  // S: a staged row's stride in words
+  float* s_wv = staged;
+  int* s_pix = reinterpret_cast<int*>(staged + NZ * S);
+  int* s_di = s_pix + NZ * S;
+  const int tiles = (Nq + Q - 1) / Q;
+  const int b = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x - b * tiles) * Q;
+  const int nq = min(Q, Nq - q0);
+  const int64_t first = (int64_t)b * NZ * Nq + q0;  // point (b, 0, 0, q0)
 
-  float acc[kPerLane];
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) acc[k] = 0.f;
+  // stage: row r = n * Zh + z of each stream, pillars q0 .. q0 + nq - 1
+  if (copy16) {
+    const int per_row = Q / 4;
+    for (int i = threadIdx.x; i < NZ * per_row; i += blockDim.x) {
+      const int r = i / per_row, q = (i - r * per_row) * 4;
+      const int bytes = max(0, min(4, nq - q)) * 4;
+      const int64_t g = first + (int64_t)r * Nq + (bytes ? q : 0);
+      cp_async16(s_wv + r * S + q, wv + g, bytes);
+      cp_async16(s_pix + r * S + q, pix + g, bytes);
+      cp_async16(s_di + r * S + q, di + g, bytes);
+    }
+  } else {
+    for (int i = threadIdx.x; i < NZ * Q; i += blockDim.x) {
+      const int r = i / Q, q = i - r * Q;
+      const int bytes = q < nq ? 4 : 0;
+      const int64_t g = first + (int64_t)r * Nq + (bytes ? q : 0);
+      cp_async4(s_wv + r * S + q, wv + g, bytes);
+      cp_async4(s_pix + r * S + q, pix + g, bytes);
+      cp_async4(s_di + r * S + q, di + g, bytes);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
 
-  for (int n = 0; n < N; ++n) {
-    const int64_t bn = (int64_t)b * N + n;
-    const float* dep_n = dep + bn * HW * D;
-    const float* ctx_n = ctx + bn * HW * C;
-    float sub[kPerLane];
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const float* dep_b = dep + (int64_t)b * N * HW * D;
+  const float* ctx_b = ctx + (int64_t)b * N * HW * C;
+  for (int i = warp; i < nq; i += kFwdWarps) {
+    float acc[kPerLane], sub[kPerLane];
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) sub[k] = 0.f;
-    for (int z = 0; z < Zh; ++z) {
-      const int64_t i = (bn * Zh + z) * Nq + q;
-      const float v = wv[i];
-      if (v == 0.f) continue;  // invalid point: adds exact zeros
-      const int p = pix[i];
-      const float w = __fmul_rn(dep_n[(int64_t)p * D + di[i]], v);
-      const float* row = ctx_n + (int64_t)p * C;
+    for (int k = 0; k < kPerLane; ++k) acc[k] = sub[k] = 0.f;
+    int cur = -1;  // the camera whose heights `sub` sums
+    for (int t0 = 0; t0 < NZ; t0 += kLanes) {
+      // lane l: point t = n * Zh + z of the pillar
+      const int t = t0 + lane;
+      const float v = t < NZ ? s_wv[t * S + i] : 0.f;
+      unsigned mask = __ballot_sync(kFull, v != 0.f);
+      if (!mask) continue;
+      int n = 0, row = 0;
+      float dv = 0.f;
+      if (v != 0.f) {
+        n = t / Zh;
+        row = n * HW + s_pix[t * S + i];  // ctx row within the sample
+        dv = __ldg(dep_b + (int64_t)row * D + s_di[t * S + i]);
+      }
+      while (mask) {
+        // the next kFwdBatch valid points, lowest t first (-1: none)
+        int src[kFwdBatch];
+        float x[kFwdBatch][kPerLane];
 #pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        const int c = lane + k * kLanes;
-        if (c < C) sub[k] = __fadd_rn(sub[k], __fmul_rn(row[c], w));
+        for (int u = 0; u < kFwdBatch; ++u) {
+          src[u] = mask ? __ffs(mask) - 1 : -1;
+          mask &= mask - 1;
+          const int r = __shfl_sync(kFull, row, src[u] & (kLanes - 1));
+          if (src[u] >= 0) {
+            // 32-bit offsets (a sample's ctx < 2^31 values): fewer
+            // instructions a gather than 64-bit ones, 5% faster
+            load_lane<VEC>(ctx_b + r * C, lane, C, x[u]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < kPerLane; ++k) x[u][k] = 0.f;
+          }
+        }
+        const float wl = __fmul_rn(dv, v);  // dep[pix, di] * wv
+#pragma unroll
+        for (int u = 0; u < kFwdBatch; ++u) {
+          if (src[u] < 0) break;  // the same for every lane
+          const float w = __shfl_sync(kFull, wl, src[u]);
+          const int nu = __shfl_sync(kFull, n, src[u]);
+          if (nu != cur) {
+            if (cur >= 0) {
+#pragma unroll
+              for (int k = 0; k < kPerLane; ++k) {
+                acc[k] = __fadd_rn(acc[k], sub[k]);
+                sub[k] = 0.f;
+              }
+            }
+            cur = nu;
+          }
+#pragma unroll
+          for (int k = 0; k < kPerLane; ++k)
+            sub[k] = __fadd_rn(sub[k], __fmul_rn(x[u][k], w));
+        }
       }
     }
+    if (cur >= 0) {
 #pragma unroll
-    for (int k = 0; k < kPerLane; ++k) acc[k] = __fadd_rn(acc[k], sub[k]);
-  }
-  float* o = out + item * C;
-#pragma unroll
-  for (int k = 0; k < kPerLane; ++k) {
-    const int c = lane + k * kLanes;
-    if (c < C) o[c] = acc[k];
+      for (int k = 0; k < kPerLane; ++k) acc[k] = __fadd_rn(acc[k], sub[k]);
+    }
+    store_lane<VEC>(out + ((int64_t)b * Nq + q0 + i) * C, lane, C, acc);
   }
 }
 
@@ -362,21 +494,50 @@ ht_pool_backward_kernel(const float* __restrict__ dep,
   for (int i = lane; i < D; i += kLanes) ddep[r * D + i] = sd[i];
 }
 
+// The pillars a forward block stages for N * Zh points a pillar: the
+// most (kTileQ or 8) whose staged tile fits in 48 KB, else 8; 0 if
+// even that does not fit in the 227 KB a block may have.
+int forward_tile(int64_t NZ, int64_t* bytes) {
+  int Q = kTileQ;
+  auto tile = [&](int q) { return 3 * NZ * (q + 4) * (int64_t)sizeof(float); };
+  while (Q > 8 && tile(Q) > 48 * 1024) Q /= 2;
+  *bytes = tile(Q);
+  return *bytes <= 227 * 1024 ? Q : 0;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success),
+// cudaErrorInvalidValue for C outside (0, 128] or a staged tile that
+// does not fit in shared memory.
 int ht_pool_forward(const float* dep, const float* ctx, const int* pix,
                     const int* di, const float* wv, float* out, int B, int N,
                     int HW, int D, int C, int Zh, int Nq, void* stream) {
-  if (C <= 0 || C > kPerLane * kLanes) return (int)cudaErrorInvalidValue;
-  const int64_t items = (int64_t)B * Nq;
-  if (items > 0) {
-    const unsigned blocks = (unsigned)((items + kWarps - 1) / kWarps);
-    ht_pool_forward_kernel<<<blocks, kWarps * kLanes, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        dep, ctx, pix, di, wv, out, B, N, HW, D, C, Zh, Nq);
+  if (C <= 0 || C > kPerLane * kLanes || N <= 0 || Zh <= 0)
+    return (int)cudaErrorInvalidValue;
+  int64_t bytes = 0;
+  const int Q = forward_tile((int64_t)N * Zh, &bytes);
+  if (Q == 0) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (int64_t)B * ((Nq + Q - 1) / Q);
+  if (blocks > 0) {
+    const int copy16 = Nq % 4 == 0 && aligned16(pix) && aligned16(di) &&
+                       aligned16(wv);
+    const bool vec4 = C % 4 == 0 && aligned16(ctx) && aligned16(out);
+    auto kernel = vec4 ? ht_pool_forward_kernel<4> : ht_pool_forward_kernel<1>;
+    if (bytes > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<(unsigned)blocks, kFwdWarps * kLanes, (size_t)bytes,
+             static_cast<cudaStream_t>(stream)>>>(
+        dep, ctx, pix, di, wv, out, N, HW, D, C, Zh, Nq, Q, copy16);
   }
   return (int)cudaGetLastError();
 }

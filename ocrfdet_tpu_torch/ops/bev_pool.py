@@ -10,8 +10,16 @@ bev_pool_v2): for CUDA tensors it sorts the points into cell intervals
 (`cell_intervals`, PyTorch bookkeeping as bev_pool_v2's prepare step)
 and launches the forward kernel, which pools each interval without
 atomics, and its backward (dfeat and dw) launches the backward kernel
-(`BWD_KERNEL`); for CPU tensors it runs `bev_pool_points_plain` (gather
-+ `index_add_`), whose autograd is the backward's plain version.
+(`BWD_KERNEL`), which walks each pixel's points without atomics, over
+the points sorted by pixel (`cell_intervals(pix_id, npix)`). For CPU
+tensors it runs `bev_pool_points_plain` (gather + `index_add_`), whose
+autograd is the backward's plain version.
+
+`lss_pool` is K2 on the model's path: it builds the LSS splat's streams
+itself (`lss_points`) and pools them as `bev_pool_points` does, but its
+backward kernel walks each pixel's D points in closed form, since the
+function that made the streams knows their layout; `lss_pool_plain` is
+its plain version.
 """
 from __future__ import annotations
 
@@ -30,8 +38,8 @@ KERNEL = kernels.Kernel(
     replaces="ocrfdet_tpu/ops/bev_pool_pallas.py:95")   # bev_pool_points
 BWD_KERNEL = kernels.Kernel(
     name="bev_pool_bwd", source="bev_pool.cu", symbol="bev_pool_backward",
-    argtypes=[ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int64]
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int64]
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     replaces="ocrfdet_tpu/ops/bev_pool_pallas.py:61")   # _bwd_kernel
 
 
@@ -108,38 +116,86 @@ def bev_pool_forward(w, pix_id, cell_id, feat, cells: int, perm, offsets):
 
 class _BevPoolPointsCUDA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, pix_id, cell_id, feat, cells):
+    def forward(ctx, w, pix_id, cell_id, feat, cells, layout):
         out = bev_pool_forward(w, pix_id, cell_id, feat, cells,
                                *cell_intervals(cell_id, cells))
         ctx.save_for_backward(w, pix_id, cell_id, feat)
-        ctx.cells = cells
+        ctx.cells, ctx.layout = cells, layout
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
         w, pix_id, cell_id, feat = ctx.saved_tensors
         dw, dfeat = bev_pool_points_backward(w, pix_id, cell_id, feat,
-                                             grad_out, ctx.cells)
-        return dw, None, None, dfeat, None
+                                             grad_out, ctx.cells,
+                                             layout=ctx.layout)
+        return dw, None, None, dfeat, None, None
+
+
+def bev_pool_backward(w, cell_id, feat, g, cells: int, layout=None,
+                      intervals=None):
+    """K2's backward kernel on CUDA tensors (g [B,cells,C] f32,
+    contiguous): (dw [B,P], dfeat [B,npix,C]) f32, every value written.
+    The points of each pixel are named by `layout` = (N, D, HW), the LSS
+    layout of `lss_points`, or else by `intervals` =
+    `cell_intervals(pix_id, npix)`; the kernel reads no pix stream."""
+    B, P = w.shape
+    npix, C = feat.shape[1:]
+    if layout is not None:
+        (N, D, HW), perm, offsets = layout, None, None
+    else:
+        (N, D, HW), (perm, offsets) = (0, 0, 0), map(kernels.ptr, intervals)
+    dfeat = torch.empty_like(feat)
+    dw = torch.empty_like(w)
+    BWD_KERNEL.launch(kernels.ptr(w), kernels.ptr(cell_id), perm, offsets,
+                      kernels.ptr(feat), kernels.ptr(g), kernels.ptr(dfeat),
+                      kernels.ptr(dw), B, P, npix, C, cells, N, D, HW,
+                      kernels.stream_of(feat))
+    return dw, dfeat
 
 
 def bev_pool_points_backward(w, pix_id, cell_id, feat, grad_out,
-                             cells: int):
-    """K2's backward kernel on CUDA tensors (the forward's inputs and
-    the cotangent g [B,cells,C]): (dw [B,P], dfeat [B,npix,C]) f32."""
-    B, P = w.shape
-    npix, C = feat.shape[1:]
+                             cells: int, layout=None):
+    """K2's backward on CUDA tensors (the forward's inputs and the
+    cotangent g [B,cells,C]): (dw [B,P], dfeat [B,npix,C]) f32. Without
+    `layout` the points are first sorted by pixel. `layout` = (N, D, HW)
+    is only for streams that `lss_points` built (`lss_pool` passes it):
+    the kernel then names each pixel's points in closed form and never
+    reads pix_id, so nothing holds the streams to the layout."""
+    B, npix, C = feat.shape
     g = grad_out.float().contiguous()
     if tuple(g.shape) != (B, cells, C):
         raise ValueError(f"bev_pool backward: g {tuple(g.shape)} != "
                          f"{(B, cells, C)}")
-    dfeat = torch.zeros_like(feat)
-    dw = torch.empty_like(w)
-    BWD_KERNEL.launch(kernels.ptr(w), kernels.ptr(pix_id),
-                      kernels.ptr(cell_id), kernels.ptr(feat), kernels.ptr(g),
-                      kernels.ptr(dfeat), kernels.ptr(dw), B, P, npix, C,
-                      cells, kernels.stream_of(feat))
-    return dw, dfeat
+    intervals = cell_intervals(pix_id, npix) if layout is None else None
+    return bev_pool_backward(w, cell_id, feat, g, cells, layout=layout,
+                             intervals=intervals)
+
+
+def _check_streams(w, pix_id, cell_id, feat, cells: int, fn: str):
+    """Raise unless K2's kernels can take these CUDA streams."""
+    B, P = w.shape
+    if B * P >= 2 ** 31 or B * (cells + 1) >= 2 ** 31:
+        raise ValueError(f"{fn}: {B} x {P} points or {cells} cells exceed "
+                         f"the kernel's int32 offsets")
+    if feat.dim() != 3 or feat.shape[0] != B:
+        raise ValueError(f"{fn}: feat {tuple(feat.shape)} does not match "
+                         f"w {tuple(w.shape)}")
+    if B * (feat.shape[1] + 1) >= 2 ** 31:
+        raise ValueError(f"{fn}: {feat.shape[1]} pixels exceed the "
+                         f"kernel's int32 offsets")
+    for name, t, dtype in (("w", w, torch.float32),
+                           ("pix_id", pix_id, torch.int32),
+                           ("cell_id", cell_id, torch.int32),
+                           ("feat", feat, torch.float32)):
+        if t.device != w.device:
+            raise ValueError(f"{fn}: {name} on {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+        if name in ("pix_id", "cell_id") and tuple(t.shape) != (B, P):
+            raise ValueError(f"{fn}: {name} {tuple(t.shape)} != {(B, P)}")
 
 
 def bev_pool_points(w, pix_id, cell_id, feat, cells: int):
@@ -149,28 +205,8 @@ def bev_pool_points(w, pix_id, cell_id, feat, cells: int):
         return bev_pool_points_plain(w, pix_id, cell_id, feat, cells)
     if w.device.type != "cuda":
         raise ValueError(f"bev_pool_points: unsupported device {w.device}")
-    B, P = w.shape
-    if B * P >= 2 ** 31 or B * (cells + 1) >= 2 ** 31:
-        raise ValueError(f"bev_pool_points: {B} x {P} points or {cells} "
-                         f"cells exceed the kernel's int32 offsets")
-    if feat.dim() != 3 or feat.shape[0] != B:
-        raise ValueError(f"bev_pool_points: feat {tuple(feat.shape)} "
-                         f"does not match w {tuple(w.shape)}")
-    for name, t, dtype in (("w", w, torch.float32),
-                           ("pix_id", pix_id, torch.int32),
-                           ("cell_id", cell_id, torch.int32),
-                           ("feat", feat, torch.float32)):
-        if t.device != w.device:
-            raise ValueError(f"bev_pool_points: {name} on {t.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"bev_pool_points: {name} must be {dtype}, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"bev_pool_points: {name} is not contiguous")
-        if name in ("pix_id", "cell_id") and tuple(t.shape) != (B, P):
-            raise ValueError(f"bev_pool_points: {name} {tuple(t.shape)} "
-                             f"!= {(B, P)}")
-    return _BevPoolPointsCUDA.apply(w, pix_id, cell_id, feat, cells)
+    _check_streams(w, pix_id, cell_id, feat, cells, "bev_pool_points")
+    return _BevPoolPointsCUDA.apply(w, pix_id, cell_id, feat, cells, None)
 
 
 def lss_points(depth, feat, vox_idx, valid, bev_size):
@@ -188,6 +224,27 @@ def lss_points(depth, feat, vox_idx, valid, bev_size):
             feat.reshape(B, N * fH * fW, -1).float().contiguous(), X * Y * Z)
 
 
+def lss_pool_plain(depth, feat, vox_idx, valid, bev_size):
+    """Plain PyTorch version of `lss_pool`."""
+    return bev_pool_points_plain(*lss_points(depth, feat, vox_idx, valid,
+                                             bev_size))
+
+
+def lss_pool(depth, feat, vox_idx, valid, bev_size):
+    """K2 on `lss_points`' streams of the LSS splat (arguments as
+    `bev_pool_lss`): [B, cells, C] f32. Its backward kernel walks each
+    pixel's D points in closed form (layout (N, D, fH * fW)), which holds
+    because this function built the streams."""
+    streams = lss_points(depth, feat, vox_idx, valid, bev_size)
+    if depth.device.type == "cpu":
+        return bev_pool_points_plain(*streams)
+    if depth.device.type != "cuda":
+        raise ValueError(f"lss_pool: unsupported device {depth.device}")
+    _check_streams(*streams, "lss_pool")
+    B, N, D, fH, fW = depth.shape
+    return _BevPoolPointsCUDA.apply(*streams, (N, D, fH * fW))
+
+
 def bev_pool_lss(depth, feat, vox_idx, valid, bev_size):
     """Pool depth-weighted image features onto the BEV grid.
 
@@ -197,6 +254,6 @@ def bev_pool_lss(depth, feat, vox_idx, valid, bev_size):
     """
     X, Y, Z = bev_size
     B, C = depth.shape[0], feat.shape[-1]
-    out = bev_pool_points(*lss_points(depth, feat, vox_idx, valid, bev_size))
+    out = lss_pool(depth, feat, vox_idx, valid, bev_size)
     out = out.to(feat.dtype).reshape(B, Z, Y, X, C)
     return out.permute(0, 2, 3, 1, 4).reshape(B, Y, X, Z * C)

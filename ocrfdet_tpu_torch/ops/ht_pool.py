@@ -41,6 +41,10 @@ ORDER_KERNEL = kernels.Kernel(     # the backward's ordering of the points
     replaces="ocrfdet_tpu/ops/ht_pool.py:118")   # _bwd_kernel
 MAX_C = 128     # channels the kernel keeps in registers (4 per lane)
 MAX_D = 2048    # depth bins the backward kernel keeps in shared memory
+# points a pillar (N x Zh) whose index streams a forward block of 8
+# pillars stages in the 227 KB of shared memory a block may have (3
+# streams, rows of 8 + 4 words)
+MAX_NZ = 227 * 1024 // (3 * 12 * 4)
 
 
 def _indices(depth_shape, uvd, valid):
@@ -182,6 +186,9 @@ def ht_pool_points(dep, ctx, pix, di, wv):
                          f"dep {tuple(dep.shape)}")
     if not 0 < C <= MAX_C:
         raise ValueError(f"ht_pool: C {C} outside (0, {MAX_C}]")
+    if N * HW * C >= 2 ** 31:
+        raise ValueError(f"ht_pool: a sample's ctx of {N} x {HW} x {C} "
+                         f"values exceeds the kernel's int32 offsets")
     if not 0 < D <= MAX_D or D * pix.shape[2] * pix.shape[3] >= 2 ** 31 \
             or pix.numel() >= 2 ** 31:
         raise ValueError(f"ht_pool: D {D} outside (0, {MAX_D}], or D x Zh "
@@ -204,6 +211,9 @@ def ht_pool_points(dep, ctx, pix, di, wv):
     if tuple(pix.shape[:2]) != (B, N):
         raise ValueError(f"ht_pool: pix {tuple(pix.shape)} does not match "
                          f"dep {tuple(dep.shape)}")
+    if N * pix.shape[2] > MAX_NZ:
+        raise ValueError(f"ht_pool: {N} x {pix.shape[2]} points a pillar "
+                         f"exceed the forward kernel's {MAX_NZ}")
     return _HtPoolCUDA.apply(dep, ctx, pix, di, wv)
 
 

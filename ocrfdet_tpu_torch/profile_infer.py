@@ -27,7 +27,7 @@ from . import entry
 GROUPS = (
     ("K1 cost_volume", ("cost_volume_kernel",)),
     ("K2 bev_pool", ("bev_pool_chunk_kernel", "bev_pool_cells_kernel")),
-    ("K2 bev_pool bwd", ("bev_pool_backward_kernel",)),
+    ("K2 bev_pool bwd", ("bev_pool_backward_",)),
     ("K3 ht_pool", ("ht_pool_forward_kernel",)),
     ("K3 ht_pool bwd", ("ht_pool_backward_kernel", "ht_pool_count_kernel",
                         "ht_pool_scan_kernel", "ht_pool_place_kernel",

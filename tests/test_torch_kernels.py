@@ -16,12 +16,14 @@ its own order; the kernel's own result is the same bits on every run);
 K3 rtol 1e-5 / atol 1e-5 of the
 output scale (the plain version sums the heights in its own order);
 K4's forward bit for bit (the same products and sums, rounded
-separately in both, in every specialisation). The backward kernels of
-K2 and K4 add with fp32 atomics in a varying order, K3's sums each
-row's points in a fixed order of its own (the same bits on every run):
-rtol 1e-5, atol 1e-5 of each gradient's scale, against the plain
-versions' autograd; K3's point ordering equals its plain version
-exactly. K5 (forward and
+separately in both, in every specialisation). The backward kernel of
+K4 adds with fp32 atomics in a varying order; K2's walks each pixel's
+points in ascending p and K3's each row's points in a fixed order of
+its own (the same bits on every run): rtol 1e-5, atol 1e-5 of each
+gradient's scale, against the plain versions' autograd; K3's point
+ordering equals its plain version exactly, and K2's two ways of naming
+a pixel's points (the LSS layout, the points sorted by pixel) give the
+same bits on LSS streams. K5 (forward and
 backward) against its plain version, which sums in the same 128-wide
 chunks but in another order inside a chunk: rtol 1e-4, atol 1e-5 of
 each output's scale (the tolerance of tests/test_splat.py for the Pallas
@@ -264,13 +266,144 @@ def test_bev_pool_kernel_rejects_bad_inputs_and_backward(dev):
                                              cells=50)],
                          ids=["c80", "ragged"])
 def test_bev_pool_backward_kernel_matches_plain(dev, kw):
+    """Random streams (no layout: the points sorted by pixel), C = 80
+    and 7; the same bits on two runs."""
     w, pix, cell, feat, cells = _pool_inputs(dev, seed=1, **kw)
     cot = torch.randn((w.shape[0], cells, feat.shape[-1]), device=dev)
     got = _grads(bp.bev_pool_points, (w, pix, cell, feat, cells), (0, 3),
                  cot)
+    again = _grads(bp.bev_pool_points, (w, pix, cell, feat, cells), (0, 3),
+                   cot)
     want = _grads(bp.bev_pool_points_plain, (w, pix, cell, feat, cells),
                   (0, 3), cot)
+    assert all(map(torch.equal, got, again))
     _assert_grads_close(got, want)
+
+
+def _lss_inputs(dev, seed, B, N=3, D=37, fH=2, fW=5, C=16, bev=(6, 5, 2),
+                valid_frac=0.5):
+    """`bev_pool_lss`'s arguments from random depth, context and voxel
+    indices: (depth, feat, vox_idx, valid, bev_size)."""
+    rng = np.random.default_rng(seed)
+    shape = (B, N, D, fH, fW)
+    depth = torch.from_numpy(rng.random(shape, dtype=np.float32))
+    feat = torch.from_numpy(rng.standard_normal((B, N, fH, fW, C),
+                                                dtype=np.float32))
+    vox = torch.from_numpy(np.stack([rng.integers(0, n, shape)
+                                     for n in bev], -1))
+    valid = torch.from_numpy(rng.random(shape) < valid_frac)
+    return (*(t.to(dev) for t in (depth, feat, vox, valid)), bev)
+
+
+def _lss_pool_inputs(dev, seed, B, N=3, D=37, fH=2, fW=5, **kw):
+    """K2's point streams of `lss_points` from `_lss_inputs`, and their
+    layout (N, D, HW)."""
+    streams = bp.lss_points(*_lss_inputs(dev, seed, B, N, D, fH, fW, **kw))
+    return streams, (N, D, fH * fW)
+
+
+def _k2_bwd_case(dev, kind):
+    """(w, pix, cell, feat, cells), the layout (None: no layout), and the
+    points whose pix lies outside [0, npix)."""
+    if kind.startswith("lss"):
+        kw = {"lss_b1": dict(B=1), "lss_b2": dict(B=2, D=70, fH=3, fW=7,
+                                                  C=80),
+              "lss_c200": dict(B=2, C=200),
+              "lss_none_valid": dict(B=2, valid_frac=0.0)}[kind]
+        (w, pix, cell, feat, cells), layout = _lss_pool_inputs(dev, 8, **kw)
+        return (w, pix, cell, feat, cells), layout, None
+    w, pix, cell, feat, cells = _pool_inputs(dev, seed=9)
+    out = None
+    if kind == "pix_out_of_range":
+        gen = torch.Generator(device=dev).manual_seed(10)
+        out = torch.rand(pix.shape, generator=gen, device=dev) < 0.2
+        far = torch.tensor([-1, feat.shape[1], feat.shape[1] + 3],
+                           dtype=torch.int32, device=dev)
+        pix = torch.where(out, far[torch.randint(
+            0, 3, pix.shape, generator=gen, device=dev)], pix)
+    if kind == "all_invalid":
+        cell = torch.full_like(cell, cells)
+    if kind == "one_pixel_full":      # every point valid, on pixel 3
+        pix = torch.full_like(pix, 3)
+        cell = cell % cells
+    return (w, pix.contiguous(), cell.contiguous(), feat, cells), None, out
+
+
+@pytest.mark.parametrize("kind", ["lss_b1", "lss_b2", "lss_c200",
+                                  "lss_none_valid", "pix_out_of_range",
+                                  "all_invalid", "one_pixel_full"])
+def test_bev_pool_backward_cases(dev, kind):
+    """K2's backward, twice (the same bits), against the plain version's
+    autograd, beside test_bev_pool_backward_kernel_matches_plain's random
+    streams: LSS streams at batch 1 and 2 (D not a multiple of the
+    32-bin slab, pixels past a block's last), C = 200 (two channel
+    blocks) and no point in the grid, walked through the layout and
+    through the points sorted by pixel (the same bits); pix outside [0,
+    npix) (dw 0, held to the plain version with those points outside the
+    grid), every cell invalid, one pixel whose every point is in the
+    grid."""
+    (w, pix, cell, feat, cells), layout, out = _k2_bwd_case(dev, kind)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cot = torch.randn((w.shape[0], cells, feat.shape[-1]), generator=gen,
+                      device=dev)
+    runs = [dict(layout=layout)] + ([dict()] if layout else [])
+    before = bp.BWD_KERNEL.launches
+    got = [[bp.bev_pool_points_backward(w, pix, cell, feat, cot, cells,
+                                        **kw) for _ in range(2)]
+           for kw in runs]
+    torch.cuda.synchronize()
+    assert bp.BWD_KERNEL.launches == before + 2 * len(runs)
+    plain_pix, plain_cell = pix, cell
+    if out is not None:
+        plain_pix = torch.where(out, torch.zeros_like(pix), pix)
+        plain_cell = torch.where(out, torch.full_like(cell, cells), cell)
+    want = _grads(bp.bev_pool_points_plain,
+                  (w, plain_pix, plain_cell, feat, cells), (0, 3), cot)
+    for first, second in got:
+        assert all(map(torch.equal, first, second))
+        _assert_grads_close(first, want)
+    if layout:
+        assert all(map(torch.equal, got[0][0], got[1][0]))
+    dw, dfeat = got[0][0]
+    if out is not None:
+        assert not bool(dw[out].any())
+    if kind in ("all_invalid", "lss_none_valid"):
+        assert not bool(dw.any()) and not bool(dfeat.any())
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_lss_pool_backward_walks_the_layout(dev, B):
+    """`lss_pool`, K2 on the model's path, backs through the backward
+    kernel's LSS layout: no sort by pixel (`cell_intervals` runs only for
+    the forward's cells, where `bev_pool_points` on the same streams runs
+    it twice), one launch of each kernel, the bits of `bev_pool_points`'
+    gradients (the points sorted by pixel) and within rtol 1e-5 of
+    `lss_pool_plain`'s autograd."""
+    from unittest import mock
+
+    depth, feat, vox, valid, bev = _lss_inputs(dev, 13, B, C=80)
+    gen = torch.Generator(device=dev)
+
+    def generic(*args):
+        return bp.bev_pool_points(*bp.lss_points(*args))
+
+    def grads(pool):
+        d, f = (t.clone().requires_grad_() for t in (depth, feat))
+        out = pool(d, f, vox, valid, bev)
+        cot = torch.randn(out.shape, device=dev, generator=gen.manual_seed(14))
+        return torch.autograd.grad(out, (d, f), cot)
+    sorts = {}
+    for name, pool in (("lss", bp.lss_pool), ("generic", generic)):
+        before = (bp.KERNEL.launches, bp.BWD_KERNEL.launches)
+        with mock.patch.object(bp, "cell_intervals",
+                               wraps=bp.cell_intervals) as ci:
+            sorts[name] = (grads(pool), ci.call_count)
+        torch.cuda.synchronize()
+        assert (bp.KERNEL.launches, bp.BWD_KERNEL.launches) == (
+            before[0] + 1, before[1] + 1)
+    assert sorts["lss"][1] == 1 and sorts["generic"][1] == 2
+    assert all(map(torch.equal, sorts["lss"][0], sorts["generic"][0]))
+    _assert_grads_close(sorts["lss"][0], grads(bp.lss_pool_plain))
 
 
 def test_tiny_slice_through_the_kernels_matches_plain(dev, monkeypatch):
@@ -284,7 +417,7 @@ def test_tiny_slice_through_the_kernels_matches_plain(dev, monkeypatch):
     after = (cvm.KERNEL.launches, bp.KERNEL.launches)
     assert after == (before[0] + 2, before[1] + 2)
     monkeypatch.setattr(cvm, "cost_volume", cvm.cost_volume_plain)
-    monkeypatch.setattr(bp, "bev_pool_points", bp.bev_pool_points_plain)
+    monkeypatch.setattr(bp, "lss_pool", bp.lss_pool_plain)
     p_preds, p_aux, _, _ = entry.infer(model, batch)
     # the reference run really went through the plain versions
     assert (cvm.KERNEL.launches, bp.KERNEL.launches) == after
@@ -314,12 +447,15 @@ def _ht_inputs(dev, seed=0, B=1, N=3, HW=44, D=16, C=80, Zh=13, Nq=300):
                                 dict(C=128, Nq=33)],
                          ids=["c80", "b2c16", "c128"])
 def test_ht_pool_kernel_matches_plain(dev, kw):
+    """C = 80, 16 and 128; the same bits on two runs."""
     args = _ht_inputs(dev, **kw)
     before = htp.KERNEL.launches
     got = htp.ht_pool_points(*args)
+    again = htp.ht_pool_points(*args)
     want = htp.ht_pool_points_plain(*args)
     torch.cuda.synchronize()
-    assert htp.KERNEL.launches == before + 1
+    assert htp.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
 
@@ -342,6 +478,47 @@ def test_ht_pool_kernel_rejects_bad_inputs_and_backward(dev):
     want = _grads(htp.ht_pool_points_plain, (dep, ctx, pix, di, wv), (0, 1),
                   cot)
     _assert_grads_close(got, want)
+
+
+def _ht_fwd_case(dev, kind):
+    """(dep, ctx, pix, di, wv) of one K3 forward case."""
+    kw = {"nq37": dict(Nq=37), "zh5": dict(B=2, Zh=5, Nq=64),
+          "c7": dict(C=7, Nq=100), "tall": dict(N=6, Zh=64, Nq=21),
+          "many_heights": dict(N=6, Zh=40, Nq=50)}.get(kind, {})
+    dep, ctx, pix, di, wv = _ht_inputs(dev, seed=7, **kw)
+    if kind == "all_invalid":
+        wv = torch.zeros_like(wv)
+    if kind == "all_valid":
+        wv = torch.ones_like(wv)
+    if kind == "one_pixel":            # pillar 5: every point on pixel 17
+        wv[..., 5] = 1.0
+        pix[..., 5] = 17
+    return dep, ctx, pix.contiguous(), di, wv.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["nq37", "zh5", "c7", "all_invalid",
+                                  "all_valid", "one_pixel", "many_heights",
+                                  "tall"])
+def test_ht_pool_forward_cases(dev, kind):
+    """K3's forward against its plain version and the same bits on two
+    runs, beside test_ht_pool_kernel_matches_plain's C = 80, 16 and 128
+    (Nq 300, 64 and 33, 16-byte staging): Nq 37 (4-byte staging), Zh 5,
+    C = 7 (4 channels 32 apart), every point invalid (exact zeros), every
+    point valid, one pillar whose heights all hit one pixel, and 240 and
+    384 points a pillar (smaller tiles; the last past 48 KB of shared
+    memory)."""
+    args = _ht_fwd_case(dev, kind)
+    before = htp.KERNEL.launches
+    got = htp.ht_pool_points(*args)
+    again = htp.ht_pool_points(*args)
+    want = htp.ht_pool_points_plain(*args)
+    torch.cuda.synchronize()
+    assert htp.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    if kind == "all_invalid":
+        assert not bool(got.any())
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(B=2, C=16, Zh=5, Nq=64),
@@ -704,7 +881,7 @@ def test_tiny_ocrf_slice_through_the_kernels_matches_plain(dev,
     after = [k.launches for k in ks]
     assert after == [b + 2 for b in before]
     monkeypatch.setattr(cvm, "cost_volume", cvm.cost_volume_plain)
-    monkeypatch.setattr(bp, "bev_pool_points", bp.bev_pool_points_plain)
+    monkeypatch.setattr(bp, "lss_pool", bp.lss_pool_plain)
     monkeypatch.setattr(htp, "ht_pool_points", htp.ht_pool_points_plain)
     monkeypatch.setattr(ps, "point_sample_points",
                         ps.point_sample_points_plain)
@@ -774,13 +951,16 @@ def _faults():
                             lambda r: (r[0], torch.zeros_like(r[1]))),
         "K2 dw = 0": wrap(bp, "bev_pool_points_backward",
                           lambda r: (torch.zeros_like(r[0]), r[1])),
+        "K2 dfeat x0.9": wrap(bp, "bev_pool_points_backward",
+                              lambda r: (r[0], 0.9 * r[1])),
         "K4 dmap x0.9": wrap(ps, "point_sample_points_backward",
                              lambda r: 0.9 * r),
         "K5 dattrs x0.9": wrap(ct, "composite_backward", lambda r: 0.9 * r)}
 
 
 @pytest.mark.parametrize("fault", ["K3 ddep x0.5", "K3 dctx = 0",
-                                   "K2 dw = 0", "K4 dmap x0.9",
+                                   "K2 dw = 0", "K2 dfeat x0.9",
+                                   "K4 dmap x0.9",
                                    "K5 dattrs x0.9"])
 def test_fp32_step_check_catches_backward_faults(dev, fault):
     """chip_smoke.py's fp32 flagship step check (K2-K5 against their
