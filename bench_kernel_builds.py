@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's K2 backward, K3 forward and backward, K4
-forward and K5 forward and backward from other source trees against
-this checkout's, on one NVIDIA GPU, each through its own tree's wrapper.
+forward and backward and K5 forward and backward from other source
+trees against this checkout's, on one NVIDIA GPU, each through its own
+tree's wrapper.
 
-    python3 bench_kernel_builds.py [--k3-same-bits] TREE [TREE ...]
+    python3 bench_kernel_builds.py [--k3-same-bits] [--k4-yardstick] TREE ...
 
 Each TREE is a directory holding a whole `ocrfdet_tpu_torch/` package:
 a checkout of another commit (`git archive <commit> ocrfdet_tpu_torch |
@@ -37,6 +38,16 @@ torch.profiler):
 - K4's forward at batch 2 with C = 4, on 16-byte aligned maps and on
   maps 4 bytes past that alignment (the launcher sends those to the
   scalar form), and at batch 1 with C = 1, beside `F.grid_sample`;
+- K4's backward at the training step's shape (batch 2, C = 4, as
+  chip_smoke.check_k4_bwd), `point_sample_points_backward` (whatever
+  each tree launches around its kernel: a zero fill of dmap, a
+  binning), held to the plain autograd at rtol 1e-5, atol 1e-5 x its
+  scale. With `--k4-yardstick` also a timing yardstick made from the
+  first TREE, which must hold the one-thread-a-point backward with float
+  atomics into a zeroed dmap (the design before the binned one): a copy
+  under build/k4_yardstick/ whose kernel loads a point's dout row only
+  when one of its taps weighs and adds a C = 4 row with one float4
+  atomicAdd (the vector reduction of sm_90), not four scalar ones;
 - K5's forward and backward on the streams of one flagship training
   step at batch 2 (recorded as chip_smoke records them), with random
   cotangents.
@@ -244,6 +255,95 @@ def time_k4(dev, trees: dict) -> dict:
     return results
 
 
+def time_k4_bwd(dev, trees: dict) -> dict:
+    """K4's backward through each tree's `point_sample_points_backward`
+    at the training step's shape, A B B A."""
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.ops import point_sample as ps
+
+    cfg = ocrfdet_config(batch_size=2)
+    uvd, _ = chip_smoke.flagship_projection(cfg, dev)
+    N, (H, W) = cfg.data.num_cams, cfg.vt.render_image_size
+    P = uvd.shape[2] * uvd.shape[3]
+    px = (uvd[0, ..., 0] * W).reshape(N, P).repeat(2, 1).contiguous()
+    py = (uvd[0, ..., 1] * H).reshape(N, P).repeat(2, 1).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(14)
+    shape = (2 * N, H, W, 4)
+    cot = torch.randn((2 * N, P, 4), generator=gen, device=dev)
+    (want,), _ = chip_smoke.plain_grads(
+        ps.point_sample_points_plain,
+        (torch.zeros(shape, device=dev), px, py), (0,), cot)
+    cases = {name: (lambda m=m: m["k4"].point_sample_points_backward(
+        px, py, cot, shape)) for name, m in trees.items()}
+    for name, fn in cases.items():
+        got = fn()
+        torch.cuda.synchronize()
+        if not close(got, want, 1e-5, 1e-5)[2]:
+            raise AssertionError(f"K4 backward {name} disagrees with its "
+                                 f"plain version")
+        log(f"[builds] k4 backward {name} device ms by kernel: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in
+                        chip_smoke.device_ms_by_kernel(fn, 20).items()))
+    key = f"k4 backward dout {tuple(cot.shape)}"
+    results = {key: abba(cases, reps=20)}
+    log(f"[builds] {key} ms: {results[key]}")
+    return results
+
+
+# The yardstick's edit of the one-thread-a-point backward kernel: the
+# dout row loaded only where a tap weighs, a C = 4 row added with one
+# float4 atomicAdd.
+K4_ATOMIC_LOOP = """  float gv[kMaxC];
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c) gv[c] = c < C ? g[c] : 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (t.w[k] == 0.f) continue;
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c)
+      if (c < C) atomicAdd(m + t.pix[k] * C + c, t.w[k] * gv[c]);
+  }
+"""
+K4_YARDSTICK_LOOP = """  if (t.w[0] == 0.f && t.w[1] == 0.f && t.w[2] == 0.f && t.w[3] == 0.f)
+    return;
+  float gv[kMaxC];
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c) gv[c] = c < C ? g[c] : 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (t.w[k] == 0.f) continue;
+    if (C == 4) {
+      atomicAdd(reinterpret_cast<float4*>(m + t.pix[k] * 4),
+                make_float4(t.w[k] * gv[0], t.w[k] * gv[1],
+                            t.w[k] * gv[2], t.w[k] * gv[3]));
+      continue;
+    }
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c)
+      if (c < C) atomicAdd(m + t.pix[k] * C + c, t.w[k] * gv[c]);
+  }
+"""
+
+
+def k4_yardstick(tree: str) -> str:
+    """A copy of TREE's package under build/k4_yardstick/ with its K4
+    backward edited as the yardstick; returns its path."""
+    import shutil
+
+    src = Path(tree).resolve() / PKG
+    dst = Path(__file__).resolve().parent / "build" / "k4_yardstick"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst / PKG,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cu = dst / PKG / "csrc" / "point_sample.cu"
+    text = cu.read_text()
+    if K4_ATOMIC_LOOP not in text:
+        raise SystemExit(f"bench_kernel_builds: {src} does not hold the "
+                         f"one-thread-a-point K4 backward")
+    cu.write_text(text.replace(K4_ATOMIC_LOOP, K4_YARDSTICK_LOOP))
+    return str(dst)
+
+
 def time_k5(dev, trees: dict) -> dict:
     """K5's forward and backward through each tree's `composite_forward`
     and `composite_backward`."""
@@ -309,10 +409,13 @@ def main() -> int:
         return 1
     args = sys.argv[1:]
     same_bits = "--k3-same-bits" in args
-    args = [a for a in args if a != "--k3-same-bits"]
+    yardstick = "--k4-yardstick" in args
+    args = [a for a in args if a not in ("--k3-same-bits", "--k4-yardstick")]
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
+    if yardstick:
+        args.append(k4_yardstick(args[0]))
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -323,7 +426,7 @@ def main() -> int:
     trees.update((tree, load_tree(tree)) for tree in args)
     results = time_k2_bwd(dev, trees)
     results.update(time_k3_fwd(dev, trees, same_bits))
-    for time in (time_k3, time_k4, time_k5):
+    for time in (time_k3, time_k4, time_k4_bwd, time_k5):
         results.update(time(dev, trees))
     log(json.dumps({"device": smi, "builds": results}))
     return 0

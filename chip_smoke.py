@@ -22,8 +22,11 @@ Phases, each printing a line:
      the LSS layout and the points sorted by pixel, each the same bits
      on two runs and the two the same bits as each other; K3's ordering
      equal to its plain version, the ordering and the kernel timed
-     apart, its longest row, the same bits on two runs; K4's timed in
-     three traces and with CUDA events);
+     apart, its longest row, the same bits on two runs; K4's binning
+     holding its plain version's keys, dmap the bits of the plain walk
+     in the kernel's order and the same bits on two runs, the backward,
+     its binning and its kernel each timed by three traces and by CUDA
+     events, its bound counting only the dout rows it must read);
   4. the BEVDepth slice (`ocrfdet_config(batch_size=1,
      with_ocrf=False)`) through `entry.infer` on a window of 30 requests
      after warm-up (2 K1 + 2 K2 launches per request), then one request
@@ -39,9 +42,9 @@ Phases, each printing a line:
      through `entry.train_step`: 3 warm-up steps (the first records K5's
      input streams), then a window of 10 timed steps with exactly 2
      launches of K1 and of each forward of K2-K4, 1 of each of their
-     backwards (and of K3's backward ordering) and 1 of K5's forward and
-     backward per step (the key frame alone is differentiated); every
-     loss finite, no step skipped;
+     backwards (and of K3's backward ordering and K4's binning) and 1 of
+     K5's forward and backward per step (the key frame alone is
+     differentiated); every loss finite, no step skipped;
   7. K5 forward and backward on those recorded flagship streams vs its
      plain version (each twice, the same bits; the bound's
      special-function term counted from the streams, beside the MUFU
@@ -53,9 +56,10 @@ Phases, each printing a line:
      jittered by one rounding (the kernels' runs and K2 jittered with
      three seeds set the noise floor): losses, per-module gradient norms,
      gradient difference;
-  9. one JSON line describing every kernel (launches from the training
-     window; forwards timed at batch 1 with their batch-2 times under
-     `*_b2`), the card's name and power limit, and last
+  9. one JSON line describing every kernel (the nine kernel functions
+     and K4's backward binning; launches from the training window;
+     forwards timed at batch 1 with their batch-2 times under `*_b2`),
+     the card's name and power limit, and last
      `{"ok": true, "device": {...}}`.
 Any failure raises and exits non-zero before the last line. It needs
 CUDA and the repository around it; imports no JAX.
@@ -68,6 +72,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -731,9 +736,45 @@ def check_k3_bwd(cfg, dev, B=2):
                 prep_ms=prep_ms, kernel_ms=kernel_ms, longest_row=longest)
 
 
+def events_ms(fn, reps: int) -> float:
+    """Mean time per call of fn() from CUDA events around `reps`
+    back-to-back calls after one warm-up call (each call's device work
+    must outlast its launch for this to time the device)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k4_bwd_bytes(px, py, dout, H, W):
+    """The bytes K4's backward must move: px and py, the dout rows of
+    the points with a tap in the image (in the 32-byte sectors that hold
+    them, counted on the host) and one write of dmap [BN,H,W,C]; and
+    those points' count."""
+    fx, fy = torch.floor(px), torch.floor(py)
+    inside = ((fx >= -1) & (fx <= W - 1) & (fy >= -1)
+              & (fy <= H - 1)).reshape(-1)
+    row = dout.shape[-1] * dout.element_size()
+    first = torch.nonzero(inside).reshape(-1) * row
+    sectors = torch.unique(torch.cat([first // 32, (first + row - 1) // 32]))
+    dmap = px.shape[0] * H * W * dout.shape[-1] * 4
+    return (nbytes(px, py) + 32 * sectors.numel() + dmap,
+            int(inside.sum()))
+
+
 def check_k4_bwd(cfg, dev, B=2):
     """K4's backward at the training step's shape: C = 4 maps ([alpha,
-    RGB]) of B x 6 cameras at full resolution, a random cotangent."""
+    RGB]) of B x 6 cameras at full resolution, a random cotangent. The
+    binning holds the plain version's keys in each bin; dmap has the bits
+    of the plain walk in the kernel's order, the same bits on two runs,
+    and is within rtol 1e-5 of the plain autograd. The backward, its
+    binning and its kernel are timed apart, each by three traces and by
+    CUDA events. Returns the backward's stats and the binning's."""
     import torch.nn.functional as F
     from ocrfdet_tpu_torch.ops import point_sample as ps
 
@@ -746,26 +787,39 @@ def check_k4_bwd(cfg, dev, B=2):
     gen = torch.Generator(device=dev).manual_seed(14)
     maps = torch.rand((B * N, H, W, C), generator=gen, device=dev)
     cot = torch.randn((B * N, P, C), generator=gen, device=dev)
-    dmap = ps.point_sample_points_backward(px, py, cot, maps.shape)
-    (pmap,), again = plain_grads(ps.point_sample_points_plain,
-                                 (maps, px, py), (0,), cot)
-    torch.cuda.synchronize()
-    err, scale, ok = close(dmap, pmap, 1e-5, 1e-5)
-    # three traces, to show their spread
+
     def run():
         return ps.point_sample_points_backward(px, py, cot, maps.shape)
-    traces = device_ms_traces(run, reps=20)
-    ms = float(np.median(traces))
-    # and CUDA events around 20 back-to-back calls (each call's device
-    # work outlasts its launch, so the events time the device)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(20):
-        run()
-    end.record()
+
+    def order():
+        return ps.point_sample_order(px, py, H, W)
+    spans, placed = order()
+    dmap, again = run(), run()
+    walk = ps.point_sample_backward_walk_plain(px, py, cot, maps.shape)
+    pends, porder = ps.point_sample_order_plain(px, py, H, W)
+    (pmap,), plain_again = plain_grads(ps.point_sample_points_plain,
+                                       (maps, px, py), (0,), cot)
     torch.cuda.synchronize()
-    events_ms = start.elapsed_time(end) / 20
-    plain_ms = device_ms(again, reps=5)
+    err, scale, ok = close(dmap, pmap, 1e-5, 1e-5)
+    same, bits = bool(torch.equal(dmap, again)), bool(torch.equal(dmap, walk))
+    binned = bool(torch.equal(torch.cumsum(spans[1] - spans[0], 0), pends)
+                  ) and bool(torch.equal(ps.binned_keys(spans, placed),
+                                         porder))
+    lengths = spans[1] - spans[0]
+
+    def kernel():
+        return ps.point_sample_backward_ordered(px, py, cot, spans, placed,
+                                                maps.shape)
+    times = {}
+    for name, fn in (("backward", run), ("binning", order),
+                     ("kernel", kernel)):
+        traces = device_ms_traces(fn, reps=20)
+        times[name] = (float(np.median(traces)), traces,
+                       events_ms(fn, reps=20))
+    parts = device_ms_by_kernel(run, reps=20)
+    plain_ms = device_ms(plain_again, reps=5)
+    order_plain_ms = device_ms(
+        lambda: ps.point_sample_order_plain(px, py, H, W), reps=5)
     # yardstick: F.grid_sample's backward to its input on the same points
     m_nchw = maps.permute(0, 3, 1, 2).contiguous().requires_grad_()
     grid = torch.stack([(2 * px + 1) / W - 1, (2 * py + 1) / H - 1],
@@ -775,23 +829,56 @@ def check_k4_bwd(cfg, dev, B=2):
     cot_l = cot.permute(0, 2, 1)[:, :, None].contiguous()
     library_ms = device_ms(lambda: torch.autograd.grad(
         out, m_nchw, cot_l, retain_graph=True), reps=20)
-    moved = nbytes(px, py, cot, dmap)
-    bound_ms, bound_by = bound(moved, px.numel() * (12 + 8 * C))
+    moved, n_in = k4_bwd_bytes(px, py, cot, H, W)
+    # operations: ~20 a point for its base tap and tiles, ~12 for its tap
+    # weights and 2 C a contribution (a product and a sum)
+    bound_ms, bound_by = bound(moved, 20 * px.numel() + n_in * (12 + 8 * C))
+    all_dout = nbytes(px, py, cot, dmap)
+    keys = int(lengths.sum())
+    # the binning must read px and py and write each key once
+    order_bound_ms, order_bound_by = bound(nbytes(px, py) + 8 * keys,
+                                           20 * px.numel())
+
+    def span(name):
+        med, traces, ev = times[name]
+        return (f"{med:.4f} ms (three traces: "
+                f"{', '.join(f'{x:.4f}' for x in traces)}; CUDA events "
+                f"{ev:.4f})")
     log(f"[k4-bwd] point_sample backward dout {tuple(cot.shape)} -> dmap "
         f"{tuple(dmap.shape)}: max_abs_err {err:.3e} (max {scale:.3f}; tol "
-        f"rtol 1e-5 atol 1e-5 x scale: {'ok' if ok else 'FAIL'}); kernel "
-        f"{ms:.4f} ms (median of three traces: "
-        f"{', '.join(f'{x:.4f}' for x in traces)}; spread "
-        f"{max(traces) - min(traces):.4f} ms; CUDA events "
-        f"{events_ms:.4f} ms), plain (autograd) "
-        f"{plain_ms:.4f} ms, grid_sample backward {library_ms:.4f} ms; "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB)")
-    if not ok:
+        f"rtol 1e-5 atol 1e-5 x scale), run to run "
+        f"{'bitwise equal' if same else 'DIFFERENT'}, the plain walk's "
+        f"bits {'yes' if bits else 'NO'}, binning "
+        f"{'equal to' if binned else 'DIFFERENT from'} its plain version: "
+        f"{'ok' if ok and same and bits and binned else 'FAIL'}; backward "
+        f"{span('backward')}: binning {span('binning')}, kernel "
+        f"{span('kernel')}; by kernel: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; plain (autograd) {plain_ms:.4f} ms, plain binning "
+        f"{order_plain_ms:.4f} ms, grid_sample backward {library_ms:.4f} "
+        f"ms; bound {bound_ms:.4f} ms by {bound_by} ({moved / 1e6:.2f} MB: "
+        f"px, py, the dout rows of the {n_in} of {px.numel()} points with "
+        f"a tap in the image in 32-byte sectors, dmap; with all of dout "
+        f"{all_dout / 1e6:.2f} MB); binning bound {order_bound_ms:.4f} ms; "
+        f"{keys} keys in {lengths.numel()} bins, "
+        f"{int((lengths > 0).sum())} hit, the largest {int(lengths.max())}")
+    if not (ok and same and bits and binned):
         raise AssertionError("K4 backward kernel disagrees with its plain "
-                             "version")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, ms_traces=traces,
-                ms_events=events_ms)
+                             "versions or with itself, or its binning with "
+                             "its plain version")
+    backward = dict(max_abs_err=err, ms=times["backward"][0],
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms, ms_traces=times["backward"][1],
+                    ms_events=times["backward"][2],
+                    prep_ms=times["binning"][0],
+                    prep_ms_events=times["binning"][2],
+                    kernel_ms=times["kernel"][0],
+                    kernel_ms_events=times["kernel"][2])
+    binning = dict(max_abs_err=0.0, ms=times["binning"][0],
+                   plain_ms=order_plain_ms, bound_ms=order_bound_ms,
+                   bound_by=order_bound_by, library_ms=None,
+                   ms_events=times["binning"][2])
+    return backward, binning
 
 
 def _composite_work(attrs, T, n_tx):
@@ -1057,8 +1144,14 @@ def _module_of(name: str) -> str:
 def check_fp32_step(dev, all_kernels):
     """One fp32 training step's losses and gradients at batch 1, from the
     same weights, batch and dropout masks, by several routes: every
-    kernel (three times: the atomics of K4's backward add in a varying
-    order), every plain version (no kernel launched), K2-K5 plain
+    kernel (three times: every kernel, forward and backward, adds in a
+    fixed order and the losses come out the same, but PyTorch's own
+    operations still move the gradients from run to run; two more runs
+    under `torch.use_deterministic_algorithms(True, warn_only=True)`
+    and cuDNN's deterministic algorithms log whether they agree and the
+    operations PyTorch names as having no deterministic implementation,
+    such as F.grid_sample's backward in the deformable attention), every
+    plain version (no kernel launched), K2-K5 plain
     with K1's kernel, each kernel alone plain, and K1's and K2's kernels
     jittered (`jittered`: a relative noise of one fp32 rounding on the
     output; K2's with three seeds). The three kernel runs set the
@@ -1093,6 +1186,26 @@ def check_fp32_step(dev, all_kernels):
 
     none = contextlib.nullcontext
     K, Ka, Kb = (step(none()) for _ in range(3))
+    # what moves the kernels' runs apart: two more runs with PyTorch's
+    # deterministic algorithms (cuDNN's too), which warn about the
+    # operations that have none
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            Kd = [step(none()) for _ in range(2)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = cudnn_deterministic
+    no_det = set()
+    for w in caught:
+        msg = str(w.message)
+        if "does not have a deterministic" in msg:
+            no_det.add(msg.split(" does not have")[0])
+        elif "CuBLAS" in msg:
+            no_det.add("cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)")
     P = step(plain_versions())
     S = step(plain_versions(only=KERNEL_NAMES[1:]))
     swap = {x: step(plain_versions(only=[x])) for x in KERNEL_NAMES}
@@ -1130,6 +1243,11 @@ def check_fp32_step(dev, all_kernels):
         return (max(d[0] for d in ds), max(d[1] for d in ds),
                 {m: max(d[2][m] for d in ds) for m in mods},
                 max(d[3] for d in ds))
+    def identical(a, b):
+        return a[0] == b[0] and all(torch.equal(a[1][n], b[1][n])
+                                    for n in names)
+    runs_same = identical(K, Ka) and identical(K, Kb)
+    det_same = identical(*Kd)
     kr = most(diff(K, Ka), diff(K, Kb), diff(Ka, Kb))
     kj2 = {seed: diff(K, J) for seed, J in J2.items()}
     kk = most(kr, *kj2.values())
@@ -1146,6 +1264,11 @@ def check_fp32_step(dev, all_kernels):
                 f"{d[3]:.2e}), height_w "
                 f"{d[2]['img_view_transformer.height_w']:.2e}, worst module "
                 f"{worst} {d[2][worst]:.2e}")
+    log(f"[fp32-step] three runs of every kernel: losses and gradients "
+        f"{'bitwise equal' if runs_same else 'DIFFERENT'}; two runs with "
+        f"PyTorch's deterministic algorithms: "
+        f"{'bitwise equal' if det_same else 'DIFFERENT'}, operations with "
+        f"none: {', '.join(sorted(no_det)) or 'none'}")
     log(f"[fp32-step] batch 1, fp32, every kernel ({K[2]} launches) vs "
         f"other routes: max rel err of the losses, rel L2 of the gradient "
         f"(max |grad| {float(flat_p.abs().max()):.3e}): " + "; ".join(
@@ -1442,11 +1565,11 @@ def main() -> int:
         f"cuDNN and matmul (fp32 comparisons)")
 
     t = time.perf_counter()
+    # the nine kernel functions, and K4's backward binning
     kernel_list = [cvm.KERNEL, bp.KERNEL, bp.BWD_KERNEL, htp.KERNEL,
                    htp.BWD_KERNEL, ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL,
-                   ct.BWD_KERNEL]
-    # launch counts are also checked for K3's backward ordering, which is
-    # not one of the nine kernels
+                   ct.BWD_KERNEL, ps.ORDER_KERNEL]
+    # launch counts are also checked for K3's backward ordering
     checked = kernel_list + [htp.ORDER_KERNEL]
     kernels.build(checked + [cvm.ROW_LOADS_KERNEL])
     nms.native_library()
@@ -1463,8 +1586,9 @@ def main() -> int:
              "ht_pool": check_k3(cfg, dev),
              "point_sample": check_k4(cfg, dev),
              "bev_pool_bwd": check_k2_bwd(cfg, dev),
-             "ht_pool_bwd": check_k3_bwd(cfg, dev),
-             "point_sample_bwd": check_k4_bwd(cfg, dev)}
+             "ht_pool_bwd": check_k3_bwd(cfg, dev)}
+    stats["point_sample_bwd"], stats["point_sample_order"] = check_k4_bwd(
+        cfg, dev)
     torch.cuda.empty_cache()
     check_slice(lss_cfg, dev, "lss", eval_kernels[:2], checked,
                 n_requests=30)
@@ -1472,12 +1596,13 @@ def main() -> int:
     check_slice(cfg, dev, "ocrf", eval_kernels, checked, n_requests=100)
     torch.cuda.empty_cache()
     # per training step: K1 and each forward of K2-K4 once per temporal
-    # frame, their backwards (K3's with its ordering) and K5 once (the key
-    # frame)
+    # frame, their backwards (K3's with its ordering, K4's with its
+    # binning) and K5 once (the key frame)
     per_step = {"cost_volume": 2, "bev_pool": 2, "ht_pool": 2,
                 "point_sample": 2, "bev_pool_bwd": 1, "ht_pool_bwd": 1,
                 "ht_pool_order": 1, "point_sample_bwd": 1,
-                "composite_tiles": 1, "composite_tiles_bwd": 1}
+                "point_sample_order": 1, "composite_tiles": 1,
+                "composite_tiles_bwd": 1}
     launches, recorded = check_training(dev, checked, per_step)
     torch.cuda.empty_cache()
     stats["composite_tiles"], stats["composite_tiles_bwd"] = check_k5(

@@ -33,7 +33,9 @@ GROUPS = (
                         "ht_pool_scan_kernel", "ht_pool_place_kernel",
                         "ht_pool_sort_kernel")),
     ("K4 point_sample", ("point_sample_forward_kernel",)),
-    ("K4 point_sample bwd", ("point_sample_backward_kernel",)),
+    ("K4 point_sample bwd", ("point_sample_backward_kernel",
+                             "point_sample_count_kernel",
+                             "point_sample_place_kernel")),
     ("K5 composite_tiles", ("composite_forward_kernel",)),
     ("K5 composite_tiles bwd", ("composite_backward_kernel",)),
     ("conv / gemm", ("conv", "cudnn", "xmma", "gemm", "cutlass", "implicit",

@@ -16,14 +16,16 @@ its own order; the kernel's own result is the same bits on every run);
 K3 rtol 1e-5 / atol 1e-5 of the
 output scale (the plain version sums the heights in its own order);
 K4's forward bit for bit (the same products and sums, rounded
-separately in both, in every specialisation). The backward kernel of
-K4 adds with fp32 atomics in a varying order; K2's walks each pixel's
-points in ascending p and K3's each row's points in a fixed order of
-its own (the same bits on every run): rtol 1e-5, atol 1e-5 of each
-gradient's scale, against the plain versions' autograd; K3's point
-ordering equals its plain version exactly, and K2's two ways of naming
-a pixel's points (the LSS layout, the points sorted by pixel) give the
-same bits on LSS streams. K5 (forward and
+separately in both, in every specialisation). The backward kernels
+walk their points in a fixed order (K2 each pixel's points in
+ascending p, K3 each row's points in an order of its own, K4 each
+texel's points by base tap, then by point: the same bits on every
+run): rtol 1e-5, atol 1e-5 of each gradient's scale, against the plain
+versions' autograd; K3's point ordering equals its plain version
+exactly, K4's binning holds the plain version's keys in each bin and
+its dmap has the bits of `point_sample_backward_walk_plain`, and K2's
+two ways of naming a pixel's points (the LSS layout, the points sorted
+by pixel) give the same bits on LSS streams. K5 (forward and
 backward) against its plain version, which sums in the same 128-wide
 chunks but in another order inside a chunk: rtol 1e-4, atol 1e-5 of
 each output's scale (the tolerance of tests/test_splat.py for the Pallas
@@ -635,7 +637,7 @@ def test_point_sample_kernel_rejects_bad_inputs_and_backward(dev):
     _assert_grads_close(got, want)
 
 
-@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
 def test_point_sample_backward_kernel_matches_plain(dev, C):
     """Edge points in (-1, 0) and (W-1, W), integer points, P % 256 != 0."""
     maps, px, py = _ps_inputs(dev, seed=1, C=C, P=4999)
@@ -643,6 +645,120 @@ def test_point_sample_backward_kernel_matches_plain(dev, C):
     got = _grads(ps.point_sample_points, (maps, px, py), (0,), cot)
     want = _grads(ps.point_sample_points_plain, (maps, px, py), (0,), cot)
     _assert_grads_close(got, want)
+
+
+def _k4_bwd_case(dev, kind):
+    """(px, py, dout, map shape) of one K4 backward case."""
+    C = 3 if kind == "c3" else 4
+    maps, px, py = _ps_inputs(dev, seed=3, BN=3, H=40, W=70, C=C, P=4999)
+    k = px.shape[1] // 8
+    if kind == "edges":          # (-1, 0) on both axes, the last row
+        px[:, 5 * k:6 * k] = -torch.rand((3, k), device=dev)
+        py[:, 5 * k:6 * k] = -torch.rand((3, k), device=dev)
+        py[:, 6 * k:7 * k] = 39 + torch.rand((3, k), device=dev)
+    if kind == "one_tile":       # a camera's every point in one tile
+        px[1] = 17 + 14 * torch.rand(px.shape[1], device=dev)
+        py[1] = 1 + 14 * torch.rand(px.shape[1], device=dev)
+    if kind == "hot_pixel":      # 20,000 points on one pixel
+        px = torch.cat([px, 20.5 + 0.5 * torch.rand((3, 20000),
+                                                     device=dev)], 1)
+        py = torch.cat([py, torch.full((3, 20000), 9.25, device=dev)], 1)
+    if kind == "empty":
+        px, py = px[:, :0].contiguous(), py[:, :0].contiguous()
+    g = torch.Generator(device=dev).manual_seed(4)
+    dout = torch.randn((*px.shape, C), generator=g, device=dev)
+    if kind == "dout_4_bytes_off":
+        buf = torch.empty(dout.numel() + 1, device=dev)
+        dout = buf[1:].view(dout.shape)
+        dout.copy_(torch.randn(dout.shape, generator=g, device=dev))
+        assert dout.data_ptr() % 16 == 4
+    return px.contiguous(), py.contiguous(), dout, (3, 40, 70, C)
+
+
+@pytest.mark.parametrize("kind", ["random", "c3", "edges",
+                                  "dout_4_bytes_off", "one_tile",
+                                  "hot_pixel", "empty"])
+def test_point_sample_backward_cases(dev, kind):
+    """K4's backward (binning and kernel): the bits of the plain walk in
+    the kernel's order, the same bits on two runs, within rtol 1e-5 of
+    the plain autograd; the binning holds the plain version's keys in
+    each bin. C = 3, edge points, dout 4 bytes past 16-byte alignment
+    (the scalar form), a bin past 512 keys (sorted in global memory, then
+    walked in chunks), one pixel holding 20,000 points, no point."""
+    px, py, dout, shape = _k4_bwd_case(dev, kind)
+    before = (ps.ORDER_KERNEL.launches, ps.BWD_KERNEL.launches)
+    got = ps.point_sample_points_backward(px, py, dout, shape)
+    again = ps.point_sample_points_backward(px, py, dout, shape)
+    torch.cuda.synchronize()
+    assert (ps.ORDER_KERNEL.launches, ps.BWD_KERNEL.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    assert torch.equal(got, ps.point_sample_backward_walk_plain(
+        px, py, dout, shape))
+    maps = torch.zeros(shape, device=dev)
+    want = _grads(ps.point_sample_points_plain, (maps, px, py), (0,), dout)
+    if kind == "empty":
+        assert not bool(got.any()) and not bool(want[0].any())
+    else:
+        _assert_grads_close([got], want)
+    spans, placed = ps.point_sample_order(px, py, *shape[1:3])
+    ends, order = ps.point_sample_order_plain(px, py, *shape[1:3])
+    assert torch.equal(torch.cumsum(spans[1] - spans[0], 0), ends)
+    assert torch.equal(ps.binned_keys(spans, placed), order)
+    n = spans[1] - spans[0]
+    if kind in ("one_tile", "hot_pixel"):
+        assert int(n.max()) > 512
+
+
+def test_point_sample_backward_bits_do_not_depend_on_the_placement(dev):
+    """The kernel gives the same bits whatever order the place kernel
+    wrote each bin's keys in: every bin shuffled, and reversed."""
+    px, py, dout, shape = _k4_bwd_case(dev, "one_tile")
+    spans, placed = ps.point_sample_order(px, py, *shape[1:3])
+    want = ps.point_sample_backward_ordered(px, py, dout, spans,
+                                            placed.clone(), shape)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for way in ("shuffled", "reversed"):
+        other = placed.clone()
+        for b in range(spans.shape[1]):
+            s, e = int(spans[0, b]), int(spans[1, b])
+            idx = (torch.randperm(e - s, generator=g, device=dev)
+                   if way == "shuffled" else
+                   torch.arange(e - s - 1, -1, -1, device=dev))
+            other[s:e] = placed[s:e][idx]
+        assert not torch.equal(other, placed)
+        assert torch.equal(ps.point_sample_backward_ordered(
+            px, py, dout, spans, other, shape), want)
+
+
+def test_point_sample_backward_every_point_on_one_pixel(dev):
+    """All 212,992 points of a flagship camera on one pixel (one bin,
+    sorted in global memory, walked in 416 chunks): the same bits on two
+    runs, and each texel within the recursive-summation bound n u S of
+    the float64 sum (n its points, u = 2^-24, S the sum of the
+    magnitudes of its terms), the plain walk being too slow here."""
+    P, H, W = 212992, 256, 704
+    g = torch.Generator(device=dev).manual_seed(6)
+    px = (100.5 + 0.5 * torch.rand((2, P), generator=g, device=dev))
+    py = torch.full((2, P), 50.25, device=dev)
+    px[1] = torch.rand(P, generator=g, device=dev) * (W + 4) - 2
+    py[1] = torch.rand(P, generator=g, device=dev) * (H + 4) - 2
+    dout = torch.randn((2, P, 4), generator=g, device=dev)
+    shape = (2, H, W, 4)
+    got = ps.point_sample_points_backward(px, py, dout, shape)
+    again = ps.point_sample_points_backward(px, py, dout, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    m64 = torch.zeros(shape, dtype=torch.float64, device=dev,
+                      requires_grad=True)
+    ps.point_sample_points_plain(m64, px.double(), py.double()).backward(
+        dout.double())
+    mabs = torch.zeros_like(m64, requires_grad=True)
+    ps.point_sample_points_plain(mabs, px.double(), py.double()).backward(
+        dout.double().abs())
+    bound = P * 2.0 ** -24 * mabs.grad
+    assert bool(((got.double() - m64.grad).abs() <= bound).all())
+    assert float(got[0].abs().sum()) > 0 and int((got[0] != 0).sum()) <= 16
 
 
 def _kernel_names(fn, key):
@@ -899,18 +1015,20 @@ def test_tiny_ocrf_slice_through_the_kernels_matches_plain(dev,
 
 def test_tiny_training_step_through_the_kernels(dev):
     """One tiny OcRF training step on the card (stereo on): 2 launches
-    of K1 and of each forward of K2-K4, 1 of each of their backwards and
-    of K5's forward and backward; finite losses, the step committed."""
+    of K1 and of each forward of K2-K4, 1 of each of their backwards
+    (and of K4's binning) and of K5's forward and backward; finite
+    losses, the step committed."""
     cfg = tiny_config()
     state = entry.build_trainer(cfg, dev, seed=0)
     batch = entry.make_batch(cfg, seed=0, batch_size=2, device=dev,
                              with_targets=True)
     ks = (cvm.KERNEL, bp.KERNEL, bp.BWD_KERNEL, htp.KERNEL, htp.BWD_KERNEL,
-          ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL, ct.BWD_KERNEL)
+          ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL, ct.BWD_KERNEL,
+          ps.ORDER_KERNEL)
     before = [k.launches for k in ks]
     metrics = entry.train_step(state, batch)
     assert [k.launches - b for k, b in zip(ks, before)] == [
-        2, 2, 1, 2, 1, 2, 1, 1, 1]
+        2, 2, 1, 2, 1, 2, 1, 1, 1, 1]
     assert metrics["skipped_nonfinite"] == 0.0 and state.step == 1
     assert all(np.isfinite(v) for v in metrics.values())
 
