@@ -56,7 +56,17 @@ Phases, each printing a line:
      jittered by one rounding (the kernels' runs and K2 jittered with
      three seeds set the noise floor): losses, per-module gradient norms,
      gradient difference;
-  9. one JSON line describing every kernel (the nine kernel functions
+  9. the trainer and the eval runner from disk: a fake nuScenes
+     (rendered scenes, 6 cameras at 900 x 1600) under build/, the
+     flagship `Trainer` at batch 2 from the CBGS dataset and the 8-thread
+     loader: 2 steps of epoch 0 (with_prev 0, no box mask), `save`, a
+     new trainer's `resume` (returns 1, the whole state equal), 2 steps
+     of epoch 2 (with_prev 1, box mask on); each step exactly the
+     per-step launches of phase 6; step ms, frames/s, the loader wait
+     per step, peak memory; then `run_eval` of the EMA weights over 4
+     held-out samples at batch 1 (exactly 2 launches of each of K1-K4
+     per request; the metrics dict, the results JSON's sample count);
+ 10. one JSON line describing every kernel (the nine kernel functions
      and K4's backward binning; launches from the training window;
      forwards timed at batch 1 with their batch-2 times under `*_b2`),
      the card's name and power limit, and last
@@ -69,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1333,6 +1344,173 @@ def check_fp32_step(dev, all_kernels):
                              + "; ".join(bad))
 
 
+def _state_equal(a, b) -> list:
+    """The keys where two `TrainState.state_dict()`s differ."""
+    diff = [] if a["step"] == b["step"] else ["step"]
+    if not torch.equal(a["generator"], b["generator"]):
+        diff.append("generator")
+    for part in ("model", "optimizer", "ema_params", "ema_stats"):
+        if a[part].keys() != b[part].keys():
+            diff.append(part)
+            continue
+        diff += [f"{part}.{k}" for k in a[part]
+                 if not torch.equal(a[part][k], b[part][k])]
+    return diff
+
+
+def check_trainer(dev, all_kernels, eval_kernels, per_step, n_steps=2):
+    """The trainer and the eval runner from a fake nuScenes on disk: a
+    rendered train set (one scene of 8 samples) and a held-out set (4
+    samples of another seed), 6 cameras at the nuScenes size 900 x 1600,
+    under the git-ignored build/. `Trainer(ocrfdet_config(batch_size=2))`
+    from `NuScenesDataset(is_train=True, cbgs=True)` and
+    `Loader(num_workers=8)`: epoch 0 for `n_steps` steps (with_prev 0,
+    no box mask), `save(0)`, a new trainer's `resume()` (it must return
+    1 with the step count and every tensor of the state equal), epoch 2
+    for `n_steps` steps (with_prev 1, box mask on). Each step must
+    launch exactly `per_step`, every loss must be finite and no step may
+    be skipped. Then `run_eval` of the resumed run's EMA weights over the
+    held-out set at batch 1: each request exactly 2 launches of each
+    eval kernel and none of the others; the metrics dict and the results
+    JSON's sample count."""
+    import tempfile
+
+    from ocrfdet_tpu_torch import kernels
+    from ocrfdet_tpu_torch.bench_train import percentile
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.data.dataset import Loader, NuScenesDataset
+    from ocrfdet_tpu_torch.data.fake_nuscenes import build_fake_nuscenes
+    from ocrfdet_tpu_torch.train import evaluate
+    from ocrfdet_tpu_torch.train.trainer import Trainer
+
+    cfg = ocrfdet_config(batch_size=2)
+    kernels.BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR,
+                                     prefix="fake_nuscenes_") as root:
+        t0 = time.perf_counter()
+        train_pkl = build_fake_nuscenes(f"{root}/train", cfg, n_samples=8,
+                                        img_hw=(900, 1600), seed=0,
+                                        scene=True, scene_len=8)
+        val_pkl = build_fake_nuscenes(f"{root}/val", cfg, n_samples=4,
+                                      img_hw=(900, 1600), seed=1,
+                                      scene=True, scene_len=4)
+        log(f"[trainer] fake nuScenes (rendered scenes, "
+            f"{cfg.data.num_cams} cameras at 900 x 1600, JPEG): 8 train "
+            f"and 4 held-out samples in {time.perf_counter() - t0:.1f} s")
+        dataset = NuScenesDataset(cfg, train_pkl, is_train=True, cbgs=True)
+        loader = Loader(dataset, cfg.batch_size, num_workers=8)
+        work = f"{root}/work"
+
+        def run(trainer, epoch):
+            flags = trainer.epoch_flags(epoch)
+            for k in all_kernels:
+                k.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            st = trainer.run_epoch(loader, epoch, log_every=1,
+                                   max_steps=n_steps)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            launches = {k.name: k.launches for k in all_kernels}
+            want = {k.name: per_step.get(k.name, 0) * n_steps
+                    for k in all_kernels}
+            if launches != want or st.steps != n_steps:
+                raise AssertionError(f"epoch {epoch}: {st.steps} steps, "
+                                     f"launches {launches}, expected {want}")
+            bad = [k for m in st.metrics for k, v in m.items()
+                   if not np.isfinite(v)]
+            if bad or any(m["skipped_nonfinite"] for m in st.metrics):
+                raise AssertionError(f"epoch {epoch}: non-finite {bad} or a "
+                                     f"skipped step")
+            log(f"[trainer] epoch {epoch} (with_prev {flags[0]:.0f}, box "
+                f"mask {flags[1]:.0f}): {st.steps} steps of batch 2 from "
+                f"disk in {st.wall_s:.3f} s, "
+                f"{st.steps * cfg.batch_size / st.wall_s:.3f} frames/s; step "
+                f"ms " + ", ".join(f"{t * 1e3:.3f}" for t in st.step_s)
+                + "; loader wait ms per step "
+                + ", ".join(f"{t * 1e3:.3f}" for t in st.wait_s)
+                + f"; peak device memory {peak:.2f} GB; loss_total "
+                + ", ".join(f"{m['loss_total']:.4f}" for m in st.metrics)
+                + f"; launches exactly per_step x {n_steps}")
+            return flags
+
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, work, steps_per_epoch=len(loader), device=dev)
+        trainer.init_state()
+        log(f"[trainer] Trainer built ({len(dataset)} CBGS samples, "
+            f"{len(loader)} steps an epoch) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        gates = [run(trainer, 0)]
+        t0 = time.perf_counter()
+        trainer.save(0)
+        saved = trainer.state.state_dict()
+        t_save = time.perf_counter() - t0
+        del trainer
+        resumed = Trainer(cfg, work, steps_per_epoch=len(loader), device=dev)
+        resumed.init_state()
+        t0 = time.perf_counter()
+        start = resumed.resume()
+        t_load = time.perf_counter() - t0
+        diff = _state_equal(saved, resumed.state.state_dict())
+        del saved
+        if start != 1 or resumed.state.step != n_steps or diff:
+            raise AssertionError(f"resume: epoch {start}, step "
+                                 f"{resumed.state.step}, differs in "
+                                 f"{diff[:8]}")
+        size = os.path.getsize(f"{work}/ckpt_epoch_0.pt") / 1e9
+        log(f"[trainer] save(0) ({size:.2f} GB) in {t_save:.1f} s, resume() "
+            f"in {t_load:.1f} s: returned 1, step {resumed.state.step}, every parameter, "
+            f"buffer, moment, EMA tensor and the generator equal")
+        gates.append(run(resumed, 2))
+        if gates != [(0.0, 0.0), (1.0, 1.0)]:
+            raise AssertionError(f"epoch gates {gates}")
+
+        cfg1 = ocrfdet_config(batch_size=1)
+        model = evaluate.ema_detector(cfg1, resumed.state, dev)
+        del resumed
+        torch.cuda.empty_cache()
+        held_out = NuScenesDataset(cfg1, val_pkl, is_train=False, cbgs=False)
+        eval_loader = Loader(held_out, 1, shuffle=False, drop_last=False,
+                             num_workers=8)
+        poses = {i["token"]: i["cams"]["CAM_FRONT"] for i in held_out.infos}
+        per_request, times = [], []
+        forward = evaluate.eval_forward
+
+        def counted(*args):
+            before = [k.launches for k in all_kernels]
+            t = time.perf_counter()
+            out = forward(*args)
+            times.append(time.perf_counter() - t)
+            per_request.append({k.name: k.launches - b
+                                for k, b in zip(all_kernels, before)})
+            return out
+        out_json = f"{root}/results.json"
+        t0 = time.perf_counter()
+        with mock.patch.object(evaluate, "eval_forward", counted):
+            metrics = evaluate.run_eval(cfg1, model, eval_loader,
+                                        out_json=out_json,
+                                        token_to_pose=poses)
+        wall = time.perf_counter() - t0
+        want = {k.name: 2 if k in eval_kernels else 0 for k in all_kernels}
+        if len(per_request) != len(held_out) or any(
+                r != want for r in per_request):
+            raise AssertionError(f"eval launches per request {per_request}, "
+                                 f"expected {want} x {len(held_out)}")
+        with open(out_json) as f:
+            n_json = len(json.load(f)["results"])
+        bad = [k for k in ("mAP", "NDS", "mATE") if k not in metrics or not (
+            np.isnan(metrics[k]) or 0.0 <= metrics[k] <= 1.0)]
+        if bad or n_json != len(held_out):
+            raise AssertionError(f"eval: {bad} out of [0, 1] or missing, "
+                                 f"{n_json} samples in the JSON")
+        log(f"[trainer] EMA eval of the resumed run over {len(held_out)} "
+            f"held-out samples at batch 1: {wall:.3f} s, forward + decode ms "
+            f"per request " + ", ".join(f"{t * 1e3:.3f}" for t in times)
+            + f" (median {percentile(times, 50) * 1e3:.3f}); exactly 2 "
+            f"launches of each of K1-K4 per request; {n_json} samples in "
+            f"the results JSON; metrics " + json.dumps(
+                {k: v for k, v in metrics.items() if k != "per_class_ap"}))
+
+
 KERNEL_NAMES = ("K1", "K2", "K3", "K4", "K5")
 JITTER_SEEDS = (100, 101, 102)
 
@@ -1610,6 +1788,8 @@ def main() -> int:
     del recorded
     torch.cuda.empty_cache()
     check_fp32_step(dev, checked)
+    torch.cuda.empty_cache()
+    check_trainer(dev, checked, eval_kernels, per_step)
 
     rows = []
     for k in kernel_list:

@@ -11,5 +11,8 @@ for CPU tensors.
 
 Ported so far: the eval forward of the flagship
 `ocrfdet_config(batch_size=1)` with the OcRF branch and HOA, and of its
-`with_ocrf=False` slice, with host NMS (see `entry.py`).
+`with_ocrf=False` slice, with host NMS, and the single-device training
+step (see `entry.py`); the host data layer (`data/`), the trainer and
+the eval runner (`train/trainer.py`, `train/evaluate.py`) and the tools
+(`python -m ocrfdet_tpu_torch.tools.{train,eval,overfit,generalize}`).
 """

@@ -68,13 +68,18 @@ def make_batch(cfg: OcRFDetConfig, seed: int = 0, batch_size: int = 1,
     """A synthetic request as tensors on `device`; with `with_targets`
     a training batch (the per-task targets as lists of tensors)."""
     device = resolve_device(device)
-    batch = synthetic.make_batch(cfg, batch_size=batch_size, seed=seed,
-                                 with_targets=with_targets)
+    return to_device(synthetic.make_batch(cfg, batch_size=batch_size,
+                                          seed=seed,
+                                          with_targets=with_targets), device)
 
+
+def to_device(arrays: Dict, device) -> Dict:
+    """numpy arrays (and lists of them, as the per-task targets) as
+    tensors on `device`."""
     def tensor(v):
         return torch.from_numpy(np.ascontiguousarray(v)).to(device)
     return {k: [tensor(t) for t in v] if isinstance(v, list) else tensor(v)
-            for k, v in batch.items()}
+            for k, v in arrays.items()}
 
 
 @torch.inference_mode()

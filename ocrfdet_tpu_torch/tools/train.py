@@ -1,0 +1,72 @@
+"""Train OcRFDet on one card (counterpart of tools_tpu/train.py).
+
+  python -m ocrfdet_tpu_torch.tools.train \
+      --infos data/bevdetv2-nuscenes_infos_train.pkl \
+      --work-dir work/ocrfdet [--tiny] [--resume] [--device cuda]
+
+Reads the info file and its images through the augmenting pipeline
+(CBGS resampling, 8 loader threads), trains `optim.max_epochs` epochs
+with the reference's epoch gates, and writes a checkpoint and
+`latest.json` after every epoch and `metrics.jsonl` as it goes. Runs on
+the card unless `--device cpu` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--infos", required=True)
+    ap.add_argument("--work-dir", default="work/ocrfdet")
+    ap.add_argument("--tiny", action="store_true",
+                    help="tiny config (debug)")
+    ap.add_argument("--no-ocrf", action="store_true")
+    ap.add_argument("--geoenh", action="store_true",
+                    help="GeoEnhDet (VGGT distillation) flagship config")
+    ap.add_argument("--vggt-ckpt", default="",
+                    help="path to the released VGGT-1B torch checkpoint")
+    ap.add_argument("--frames8", action="store_true",
+                    help="8-frame test-set variant")
+    ap.add_argument("--batch-size", type=int, default=0)
+    ap.add_argument("--max-steps-per-epoch", type=int, default=0)
+    ap.add_argument("--multihost", action="store_true",
+                    help="one process per host (not ported)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost: multi-process training is ROADMAP item 13")
+    if args.geoenh or args.vggt_ckpt:
+        raise NotImplementedError(
+            "--geoenh/--vggt-ckpt: GeoEnhDet is ROADMAP item 15")
+    if args.frames8:
+        raise NotImplementedError(
+            "--frames8: the 8-frame variant is ROADMAP item 14")
+
+    from ..config import ocrfdet_config, tiny_config
+    from ..data.dataset import Loader, NuScenesDataset
+    from ..train.trainer import Trainer
+
+    cfg = tiny_config() if args.tiny else ocrfdet_config()
+    if args.no_ocrf:
+        cfg = dataclasses.replace(cfg, with_ocrf=False)
+    if args.batch_size:
+        cfg = dataclasses.replace(cfg, batch_size=args.batch_size)
+
+    dataset = NuScenesDataset(cfg, args.infos, is_train=True)
+    loader = Loader(dataset, cfg.batch_size)
+    trainer = Trainer(cfg, args.work_dir, steps_per_epoch=len(loader),
+                      device=args.device)
+    trainer.init_state()
+    start = trainer.resume() if args.resume else 0
+    trainer.fit(loader, start_epoch=start,
+                max_steps_per_epoch=args.max_steps_per_epoch or None)
+
+
+if __name__ == "__main__":
+    main()

@@ -142,6 +142,19 @@ class Optimizer:
     def state_tensors(self) -> List[torch.Tensor]:
         return [t for g in self.groups.values() for t in g.state_tensors()]
 
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The moments by "{m|v}.{parameter name}"."""
+        out = {}
+        for k, g in self.groups.items():
+            for kind, ts in (("m", g.m), ("v", g.v)):
+                out.update((f"{kind}.{n}", t)
+                           for n, t in zip(self.names[k], ts))
+        return out
+
+    def load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Copy `state_dict()`'s tensors in place; the keys must match."""
+        _copy_in_place(self.state_dict(), sd, "optimizer")
+
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], count: int) -> None:
         """One update of `params()` from `grads` (in that order, clipped
@@ -171,3 +184,17 @@ class EMA:
 
     def as_dict(self) -> Dict[str, torch.Tensor]:
         return dict(zip(self.names, self.ema))
+
+    def load_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Copy `as_dict()`'s tensors in place; the keys must match."""
+        _copy_in_place(self.as_dict(), sd, "EMA")
+
+
+@torch.no_grad()
+def _copy_in_place(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
+                   what: str) -> None:
+    if set(dst) != set(src):
+        raise KeyError(f"{what} state: missing {sorted(set(dst) - set(src))}"
+                       f", unexpected {sorted(set(src) - set(dst))}")
+    for k, t in dst.items():
+        t.copy_(src[k])

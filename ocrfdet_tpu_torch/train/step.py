@@ -60,6 +60,27 @@ class TrainState:
         self.ema_stats = EMA({f"{n}.{k}": getattr(m, k) for n, m in bns
                               for k in ("running_mean", "running_var")})
 
+    def state_dict(self) -> Dict:
+        """What a resumed run needs to continue bit for bit: the step
+        count, the model's parameters and buffers (the BatchNorm
+        statistics and `num_batches_tracked`), the optimizer's moments,
+        both EMAs and the dropout generator's state."""
+        return dict(step=self.step, model=self.model.state_dict(),
+                    optimizer=self.optimizer.state_dict(),
+                    ema_params=self.ema_params.as_dict(),
+                    ema_stats=self.ema_stats.as_dict(),
+                    generator=self.generator.get_state())
+
+    def load_state_dict(self, sd: Dict) -> None:
+        """Restore `state_dict()` in place (strict: every key must
+        match)."""
+        self.model.load_state_dict(sd["model"], strict=True)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.ema_params.load_state_dict(sd["ema_params"])
+        self.ema_stats.load_state_dict(sd["ema_stats"])
+        self.generator.set_state(sd["generator"].cpu())
+        self.step = int(sd["step"])
+
 
 def train_step(state: TrainState, batch: Dict) -> Dict[str, float]:
     """One training step on `batch` (tensors on the model's device, from
