@@ -66,11 +66,32 @@ Phases, each printing a line:
      per step, peak memory; then `run_eval` of the EMA weights over 4
      held-out samples at batch 1 (exactly 2 launches of each of K1-K4
      per request; the metrics dict, the results JSON's sample count);
- 10. one JSON line describing every kernel (the nine kernel functions
+ 10. K1, K2-K4 forward and K2-K4 backward at the GeoEnhDet training
+     step's batch 4, each against its plain version with the batch-1
+     and batch-2 tolerances;
+ 11. GeoEnhDet training (`geoenh_config()`: batch 4, 512-channel FPN,
+     the VGGT-1B teacher at 294 x 518 with seeded random weights, bf16
+     towers) through `entry.train_step`: 3 warm-up steps, a window of 5
+     timed steps with exactly phase 6's launches a step; every loss
+     finite (both KD losses), no step skipped; the teacher bitwise
+     unchanged, frozen, with no optimizer moments and no EMA copy;
+     parameter counts, step ms, frames/s, peak memory; the teacher's and
+     the KD branch's forward device time from one traced step; the
+     teacher's bf16 tokens against fp32 (relative RMS); one teacher
+     forward's device time by kernel group;
+ 12. GeoEnhDet eval (`geoenh_config(batch_size=1)`) through
+     `entry.infer`: 20 requests, 2 launches of each of K1-K4 a request,
+     the teacher and the aligner never called; latency; then the fp32
+     request with the kernels and with their plain versions, as phase 5;
+ 13. the 8-frame variant (`ocrfdet_8f_config(batch_size=1)`) through
+     `entry.infer`: 20 requests, 8 launches of each of K1-K4 a request,
+     latency, then the fp32 request with the kernels and with their
+     plain versions, as phase 5;
+ 14. one JSON line describing every kernel (the nine kernel functions
      and K4's backward binning; launches from the training window;
-     forwards timed at batch 1 with their batch-2 times under `*_b2`),
-     the card's name and power limit, and last
-     `{"ok": true, "device": {...}}`.
+     forwards timed at batch 1 with their batch-2 times under `*_b2`
+     and the batch-4 times under `*_b4`), the card's name and power
+     limit, and last `{"ok": true, "device": {...}}`.
 Any failure raises and exits non-zero before the last line. It needs
 CUDA and the repository around it; imports no JAX.
 """
@@ -78,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -579,8 +601,8 @@ def check_k4(cfg, dev):
     return with_b2(_k4_case(cfg, dev, 1, 1), _k4_case(cfg, dev, 2, 4))
 
 
-def check_k2_bwd(cfg, dev):
-    """K2's backward at the training step's shape (batch 2) on a random
+def check_k2_bwd(cfg, dev, B=2):
+    """K2's backward at the training step's shape (batch B) on a random
     cotangent, vs the plain version's autograd, by both ways of naming a
     pixel's points: the LSS layout (the model's path, timed as the
     kernel's time) and the points sorted by pixel (the kernel timed apart
@@ -588,8 +610,8 @@ def check_k2_bwd(cfg, dev):
     bits as each other."""
     from ocrfdet_tpu_torch.ops import bev_pool as bp
 
-    w, pix, cell, featp, cells = flagship_pool_inputs(cfg, dev, 2, seed=11)
-    B, P = w.shape
+    w, pix, cell, featp, cells = flagship_pool_inputs(cfg, dev, B, seed=11)
+    P = w.shape[1]
     npix, C = featp.shape[1:]
     N = cfg.data.num_cams
     layout = (N, P // npix, npix // N)
@@ -1146,6 +1168,214 @@ def check_training(dev, all_kernels, per_step, n_steps=10, n_warmup=3):
     return launches, recorded
 
 
+def check_kernels_b4(cfg, dev):
+    """K1, K2-K4 forward and K2-K4 backward at the GeoEnhDet training
+    step's batch 4 (`geoenh_config()`: its kernels' shapes are the
+    flagship's but for the batch), each against its plain version with
+    the tolerances of the batch-1 and batch-2 cases. {name: stats}."""
+    out = {"cost_volume": _k1_case(cfg, dev, 4),
+           "bev_pool": _k2_case(cfg, dev, 4),
+           "ht_pool": _k3_case(cfg, dev, 4),
+           "point_sample": _k4_case(cfg, dev, 4, 4),
+           "bev_pool_bwd": check_k2_bwd(cfg, dev, B=4),
+           "ht_pool_bwd": check_k3_bwd(cfg, dev, B=4)}
+    out["point_sample_bwd"], _ = check_k4_bwd(cfg, dev, B=4)
+    return out
+
+
+def _ranged(name, fn, events):
+    """fn inside a torch.profiler range `name`, with CUDA events around
+    it appended to events[name]."""
+    def f(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        with torch.profiler.record_function(name):
+            out = fn(*args, **kwargs)
+        end.record()
+        events.setdefault(name, []).append((start, end))
+        return out
+    return f
+
+
+def check_geoenh_training(dev, all_kernels, per_step, n_steps=5,
+                          n_warmup=3):
+    """GeoEnhDet's training step (`geoenh_config()`: batch 4, 6 x 256 x
+    704, 512-channel FPN, the VGGT-1B teacher at 294 x 518 with seeded
+    random weights, bf16 towers) through `entry.train_step`: `n_warmup`
+    steps, then a window of `n_steps` timed steps with every kernel's
+    count set to 0 just before it and read just after: exactly the
+    flagship's `per_step` a step (the teacher and the aligner launch no
+    kernel of the repository). Every loss finite (both KD losses), no
+    step skipped; every teacher parameter bitwise equal to its value
+    before the window, frozen, with no optimizer moments and no EMA
+    copy. Then one traced step for the device time of the teacher and of
+    the KD branch (forward; busy time and span, the span longer where
+    the host falls behind), the relative RMS of the
+    teacher's bf16 tokens against an fp32 run on the same pair, and one
+    traced teacher forward's device time by kernel group."""
+    from ocrfdet_tpu_torch import bench_train, entry
+    from ocrfdet_tpu_torch.config import geoenh_config
+    from ocrfdet_tpu_torch.models.view_transformer import towers_autocast
+
+    cfg = geoenh_config()
+    B = cfg.batch_size
+    t0 = time.perf_counter()
+    state = entry.build_trainer(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = state.model
+
+    def count(m):
+        return sum(p.numel() for p in m.parameters())
+    n_teacher, n_aligner = count(model.aggregator), count(model.aligner)
+    n_student = count(model) - n_teacher - n_aligner
+    batches = [entry.make_batch(cfg, seed=s, batch_size=B, device=dev,
+                                with_targets=True) for s in range(2)]
+    log(f"[geoenh] built the GeoEnhDet trainer in {build_s:.1f} s (seeded "
+        f"init on the host and copy to the card): teacher "
+        f"{n_teacher / 1e6:.2f} M params (frozen, {cfg.vggt_teacher.depth} "
+        f"frame + global blocks, DINOv2 depth {cfg.vggt_teacher.vit_depth},"
+        f" {cfg.vggt_teacher.image_size}), aligner {n_aligner / 1e6:.2f} M, "
+        f"student {n_student / 1e6:.2f} M; {cfg.compute_dtype} towers, "
+        f"FPN {cfg.vt.in_channels} channels")
+    teacher = {n: p.detach().cpu()
+               for n, p in model.aggregator.named_parameters()}
+    t0 = time.perf_counter()
+    for i in range(n_warmup):
+        first = entry.train_step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    log(f"[geoenh] {n_warmup} warm-up steps in "
+        f"{time.perf_counter() - t0:.1f} s (last loss_total "
+        f"{first['loss_total']:.4f})")
+    for k in all_kernels:
+        k.launches = 0
+    r = bench_train.window(state, batches, n_steps)
+    launches = {k.name: k.launches for k in all_kernels}
+    for k in all_kernels:
+        want = per_step.get(k.name, 0) * n_steps
+        if launches[k.name] != want:
+            raise AssertionError(f"{k.name}: {launches[k.name]} launches over "
+                                 f"{n_steps} GeoEnhDet steps, expected {want}")
+    m = r["metrics"]
+    bad = [k for k, v in m.items() if not np.isfinite(v)]
+    kd = {k: m.get(k) for k in ("loss_Smoothl1_KD", "loss_cos_KD")}
+    if bad or None in kd.values() or r["skipped"] \
+            or state.step != n_warmup + n_steps:
+        raise AssertionError(f"GeoEnhDet window: non-finite {bad}, KD "
+                             f"{kd}, {r['skipped']} skipped, step "
+                             f"{state.step}")
+    changed = [n for n, p in model.aggregator.named_parameters()
+               if not torch.equal(p.detach().cpu(), teacher[n])]
+    frozen = set(state.optimizer.names["frozen"])
+    in_optimizer = [k for k in state.optimizer.state_dict()
+                    if k.split(".", 1)[1].startswith("aggregator.")]
+    in_ema = [k for k in state.ema_params.names
+              if k.startswith("aggregator.")]
+    trainable = [n for n, p in model.aggregator.named_parameters()
+                 if p.requires_grad or p.grad is not None]
+    if changed or frozen != {"aggregator." + n for n in teacher} \
+            or in_optimizer or in_ema or trainable:
+        raise AssertionError(f"teacher: {len(changed)} tensors changed, "
+                             f"{len(frozen)} frozen of {len(teacher)}, "
+                             f"{len(in_optimizer)} optimizer moments, "
+                             f"{len(in_ema)} EMA copies, {len(trainable)} "
+                             f"trainable")
+    del teacher
+    log(f"[geoenh] {n_steps} steps after {n_warmup} warm-up (batch {B}, "
+        f"{cfg.total_frames} frames x {cfg.data.num_cams} cams at "
+        f"{cfg.data.input_size}) in a {r['wall_s']:.3f} s window: "
+        f"{r['frames_per_s']:.3f} frames/s; step ms median "
+        f"{r['step_ms_median']:.3f} p90 {r['step_ms_p90']:.3f}; peak device "
+        f"memory {r['peak_mem_gb']:.2f} GB; skipped_nonfinite "
+        f"{r['skipped']:.0f}; launches {launches} (the flagship's per step); "
+        f"the teacher's {len(frozen)} tensors bitwise unchanged, frozen, no "
+        f"optimizer moments, no EMA copy")
+    log("[geoenh] last step's losses: " + json.dumps(
+        {k: round(v, 6) for k, v in m.items()}))
+
+    # one traced step: the teacher's and the KD branch's forward
+    events = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with mock.patch.object(model.aggregator, "forward", _ranged(
+            "geoenh.teacher", model.aggregator.forward, events)), \
+            mock.patch.object(model, "kd_branch", _ranged(
+                "geoenh.kd_branch", model.kd_branch, events)), \
+            torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        entry.train_step(state, batches[0])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    from ocrfdet_tpu_torch.profile_infer import busy_us, device_breakdown
+    # the device's kernels, copies and memsets; the ranges' device-side
+    # annotations span their gaps too
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in dev_events if not e.name.startswith("geoenh.")]
+    step_busy = busy_us([(e.time_range.start, e.time_range.end)
+                         for e in kernels]) / 1e3
+
+    def on_device(name):
+        """(busy, span) ms of a range on the device: the span of its
+        device-side annotation and the union of the kernel intervals
+        inside it; None where the trace holds no such annotation."""
+        spans = [e.time_range for e in dev_events if e.name == name]
+        if not spans:
+            return None
+        s, t = min(r.start for r in spans), max(r.end for r in spans)
+        inside = [(max(e.time_range.start, s), min(e.time_range.end, t))
+                  for e in kernels
+                  if e.time_range.end > s and e.time_range.start < t]
+        return busy_us(inside) / 1e3, (t - s) / 1e3
+    teacher, kd = on_device("geoenh.teacher"), on_device("geoenh.kd_branch")
+    ranges = ("not in the trace" if None in (teacher, kd) else
+              f"teacher busy {teacher[0]:.3f} ms in a span of "
+              f"{teacher[1]:.3f} ms; aligner, group-correlation volumes and "
+              f"KD losses busy {kd[0] - teacher[0]:.3f} ms (the KD branch "
+              f"{kd[0]:.3f} ms in a span of {kd[1]:.3f} ms)")
+    ev = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
+    log(f"[geoenh] one traced step ({wall_us / 1e3:.1f} ms with the "
+        f"profiler; device busy {step_busy:.3f} ms, idle share "
+        f"{1 - step_busy * 1e3 / wall_us:.3f}): forward on the device "
+        f"(torch.profiler ranges): {ranges}; CUDA events: teacher "
+        f"{ev['geoenh.teacher']:.3f} ms, KD branch "
+        f"{ev['geoenh.kd_branch']:.3f} ms")
+
+    # the teacher's bf16 tokens against an fp32 run on the same pair
+    with torch.no_grad():
+        x = model.teacher_images(batches[0])
+        with towers_autocast(x.device, torch.bfloat16):
+            t16, _ = model.aggregator(x.to(torch.bfloat16))
+        t32, _ = model.aggregator(x)
+    rel = float((t16.float() - t32).pow(2).mean().sqrt()
+                / t32.pow(2).mean().sqrt())
+    log(f"[geoenh] teacher tokens {tuple(t32.shape)}: bf16 (as the step "
+        f"runs it) vs fp32 relative RMS {rel:.3e}")
+    if not np.isfinite(rel):
+        raise AssertionError("non-finite teacher tokens")
+    del t16, t32
+
+    # where the teacher's forward spends its device time, away from the
+    # step's host-bound dispatch
+    def teacher():
+        with torch.no_grad(), towers_autocast(x.device, torch.bfloat16):
+            return model.aggregator(x.to(torch.bfloat16))
+    teacher()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        teacher()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    parts = device_breakdown(prof, 1, wall_us)
+    log(f"[geoenh] one teacher forward alone: device busy "
+        f"{parts['device_busy_ms']:.3f} ms over {parts['device_events']} "
+        f"device events; by group (ms): " + ", ".join(
+            f"{g} {t:.3f}" for g, t in parts["group_ms"].items())
+        + "; largest kernels (ms): " + ", ".join(
+            f"{k} {t:.3f}" for k, t in parts["top_kernels_ms"][:5]))
+
+
 def _module_of(name: str) -> str:
     parts = name.split(".")
     return ".".join(parts[:2]) if parts[0] == "img_view_transformer" \
@@ -1578,8 +1808,9 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     seeds 0..n_batches-1) through `entry.infer` after `n_warmup` warm-up
     requests, one at a time as a server would. Every kernel's count is
     set to 0 just before the window and read just after: each of
-    `path_kernels` must have launched exactly twice per request (once
-    per temporal frame), every other kernel never. Per request it takes
+    `path_kernels` must have launched exactly once per temporal frame of
+    each request, every other kernel never. A GeoEnhDet model's teacher
+    and aligner must not run. Per request it takes
     the host-clock times `entry.infer` records (dispatch of the forward
     and decode, the wait for the decoded boxes, host NMS) and the whole
     request (until `entry.infer` returns); over the window, the main
@@ -1591,9 +1822,15 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
 
     t0 = time.perf_counter()
     model = entry.build_detector(cfg, dev, seed=0)
-    log(f"[{tag}] built the flagship with_ocrf={cfg.with_ocrf} detector on "
+    log(f"[{tag}] built the {type(model).__name__} with_ocrf="
+        f"{cfg.with_ocrf} detector, {cfg.num_frames} temporal frames, on "
         f"{dev} ({sum(p.numel() for p in model.parameters()) / 1e6:.2f} M "
         f"params, {time.perf_counter() - t0:.1f} s)")
+    # the modules eval must not run: GeoEnhDet's teacher and aligner
+    silent = {n: 0 for n in ("aggregator", "aligner") if hasattr(model, n)}
+    for n in silent:
+        getattr(model, n).register_forward_pre_hook(
+            lambda *_, n=n: silent.__setitem__(n, silent[n] + 1))
     batches = [entry.make_batch(cfg, seed=s, device=dev)
                for s in range(n_batches)]
     for i in range(n_warmup):
@@ -1616,11 +1853,13 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     cpu_window = time.thread_time() - cpu_window
     launches = {k.name: k.launches for k in all_kernels}
     for k in all_kernels:
-        want = 2 * n_requests if k in path_kernels else 0
+        want = cfg.num_frames * n_requests if k in path_kernels else 0
         if launches[k.name] != want:
             raise AssertionError(f"{k.name}: {launches[k.name]} launches "
                                  f"over {n_requests} requests, expected "
                                  f"{want}")
+    if any(silent.values()):
+        raise AssertionError(f"eval ran the distillation modules: {silent}")
     D = cfg.grid.num_depth_bins
     N = cfg.data.num_cams
     h = cfg.data.input_size[0] // cfg.vt.downsample
@@ -1660,7 +1899,8 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
         f"{cfg.compute_dtype}) in a {window:.3f} s window: "
         f"{n_requests / window:.3f} frames/s; latency ms median "
         f"{ms(wall, 50)} p90 {ms(wall, 90)} min {ms(wall, 0)} max "
-        f"{ms(wall, 100)}; host dispatch ms median "
+        f"{ms(wall, 100)} (request {int(np.argmax(wall))} of the window); "
+        f"host dispatch ms median "
         f"{ms(col('dispatch'), 50)} p90 {ms(col('dispatch'), 90)}, "
         f"{sum(col('dispatch')) / sum(wall):.2%} of the requests' time; "
         f"wait for the device ms median {ms(col('wait'), 50)}; main thread "
@@ -1670,13 +1910,14 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
         f"{ms(col('nms'), 50)} p90 {ms(col('nms'), 90)}, copy of the "
         f"decoded boxes (after the device is done) in the wait above; "
         f"{valid} decoded boxes above threshold -> "
-        f"{len(outs[0][3][0]['boxes'])} detections (request 0)")
-
+        f"{len(outs[0][3][0]['boxes'])} detections (request 0)"
+        + (f"; teacher and aligner calls {silent}" if silent else ""))
     # the same request in fp32, with the kernels and with the plain
-    # versions, on the same weights
+    # versions, on the same weights (of the student alone: what eval runs)
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     m32 = OcRFDet(cfg32)
-    m32.load_state_dict(model.state_dict())
+    sd = model.state_dict()
+    m32.load_state_dict({k: sd[k] for k in m32.state_dict()})
     m32 = m32.eval().to(dev)
     del model
     before = [k.launches for k in all_kernels]
@@ -1687,7 +1928,7 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     torch.cuda.synchronize()
     plain_after = [k.launches for k in all_kernels]
     for k, b, a, p in zip(all_kernels, before, after, plain_after):
-        want = 2 if k in path_kernels else 0
+        want = cfg.num_frames if k in path_kernels else 0
         if a != b + want or p != a:
             raise AssertionError(
                 f"{k.name}: {a - b} launches in the fp32 kernel run "
@@ -1721,7 +1962,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from ocrfdet_tpu_torch import kernels
-    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.config import (geoenh_config, ocrfdet_8f_config,
+                                          ocrfdet_config)
     from ocrfdet_tpu_torch.ops import bev_pool as bp
     from ocrfdet_tpu_torch.ops import cost_volume as cvm
     from ocrfdet_tpu_torch.ops import ht_pool as htp
@@ -1790,12 +2032,33 @@ def main() -> int:
     check_fp32_step(dev, checked)
     torch.cuda.empty_cache()
     check_trainer(dev, checked, eval_kernels, per_step)
+    torch.cuda.empty_cache()
+    # GeoEnhDet: its kernels at batch 4, its training step (the same
+    # launches a step as the flagship's) and its eval path; then the
+    # 8-frame eval path (each of K1-K4 once per temporal frame)
+    b4 = check_kernels_b4(geoenh_config(), dev)
+    torch.cuda.empty_cache()
+    check_geoenh_training(dev, checked, per_step)
+    # the 1 G-parameter models go before the next window
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_slice(geoenh_config(batch_size=1), dev, "geoenh-eval",
+                eval_kernels, checked, n_requests=20)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_slice(ocrfdet_8f_config(batch_size=1), dev, "8f", eval_kernels,
+                checked, n_requests=20)
 
     rows = []
     for k in kernel_list:
         st = dict(stats[k.name])
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             st.setdefault(f"{key}_b2", st[key])   # measured at batch 2
+            if k.name in b4:
+                st[f"{key}_b4"] = b4[k.name][key]
+        if k.name in b4:
+            st["max_abs_err"] = max(st["max_abs_err"],
+                                    b4[k.name]["max_abs_err"])
         rows.append(dict(name=k.name, route="cuda",
                          source=f"ocrfdet_tpu_torch/csrc/{k.source}",
                          replaces=k.replaces, launches=launches[k.name],

@@ -2,9 +2,11 @@
 
 A copy of `ocrfdet_tpu/config.py`'s dataclasses, so that the PyTorch
 port imports nothing of the JAX package. `ocrfdet_config()` is the
-flagship 2-frame ResNet-50 256x704 config and `tiny_config()` a
-CPU-runnable miniature for tests; the two must stay field-for-field
-equal to the JAX package's (tests/test_torch_modules.py checks it).
+flagship 2-frame ResNet-50 256x704 config, `geoenh_config()` GeoEnhDet
+(the flagship with a frozen VGGT-1B teacher), `ocrfdet_8f_config()` the
+8-frame test-set variant and `tiny_config()` a CPU-runnable miniature
+for tests; each must stay field-for-field equal to the JAX package's
+(tests/test_torch_modules.py and tests/test_torch_8frame.py check it).
 Fields that only the JAX package reads (Pallas window sizes, mesh
 layout) are kept so that the two configs compare equal. The port reads
 `vt.renderer` ("dense": the exact compositor; "xla" and "pallas": the
@@ -350,6 +352,30 @@ class OcRFDetConfig:
 def ocrfdet_config(**overrides) -> OcRFDetConfig:
     """The flagship 2-frame r50 256x704 config (ocrfdet.py)."""
     return dataclasses.replace(OcRFDetConfig(), **overrides)
+
+
+def geoenh_config(**overrides) -> OcRFDetConfig:
+    """GeoEnhDet flagship (configs/ocrfdet/ocrfdet_vggt.py deltas vs
+    the base: FPN out 512 ch, max_objs 1000, post_max_size 400,
+    warmup 1000 iters, batch 4/device, frozen VGGT-1B teacher)."""
+    base = OcRFDetConfig()
+    cfg = dataclasses.replace(
+        base,
+        vt=dataclasses.replace(base.vt, in_channels=512),
+        head=dataclasses.replace(base.head, max_objs=1000,
+                                 post_max_size=400),
+        optim=dataclasses.replace(base.optim, warmup_iters=1000),
+        vggt_teacher=VGGTTeacherConfig(),
+        batch_size=4,
+    )
+    return dataclasses.replace(cfg, **overrides)
+
+
+def ocrfdet_8f_config(**overrides) -> OcRFDetConfig:
+    """The 8-frame test-set variant (README.md:46-47):
+    multi_adj_frame_id_cfg=(1,8,1) -> 7 adjacent frames + key + stereo
+    ref. Everything else matches the flagship 2-frame config."""
+    return dataclasses.replace(OcRFDetConfig(), num_adj=7, **overrides)
 
 
 def tiny_config(**overrides) -> OcRFDetConfig:

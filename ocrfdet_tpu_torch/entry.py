@@ -11,8 +11,12 @@ and of the JAX package's single-device train step).
 
 The default config is the flagship `ocrfdet_config(batch_size=1)`, with
 the OcRF branch and HOA on; `with_ocrf=False` selects the BEVDepth-style
-LSS slice. `entry()` returns the flagship eval forward and its example
-batch, as the JAX package's `__graft_entry__.entry()` does. Everything
+LSS slice, `ocrfdet_8f_config()` the 8-frame variant and
+`geoenh_config()` GeoEnhDet (a config with `vggt_teacher` builds
+`GeoEnhDet`, whose frozen VGGT teacher has seeded random weights unless
+a trainer loads the released checkpoint). `entry()` returns the flagship
+eval forward and its example batch, as the JAX package's
+`__graft_entry__.entry()` does. Everything
 runs on the card unless the caller passes `device="cpu"`; without CUDA
 the default device raises.
 """
@@ -28,6 +32,7 @@ from .config import OcRFDetConfig, ocrfdet_config
 from .core.coder import decode_all_tasks
 from .data import synthetic
 from .models.detector import OcRFDet
+from .models.geoenh import GeoEnhDet
 from .ops.nms import multi_task_nms
 from .train.step import TrainState, train_step  # noqa: F401 (entry point)
 from .utils.weights import init_weights
@@ -42,12 +47,17 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def detector_class(cfg: OcRFDetConfig):
+    """`GeoEnhDet` where the config has a VGGT teacher, else `OcRFDet`."""
+    return OcRFDet if cfg.vggt_teacher is None else GeoEnhDet
+
+
 def build_detector(cfg: Optional[OcRFDetConfig] = None, device=None,
                    seed: int = 0) -> OcRFDet:
     """The eval-mode detector with seeded random weights on `device`."""
     device = resolve_device(device)
     cfg = cfg or ocrfdet_config(batch_size=1)
-    model = init_weights(OcRFDet(cfg), seed)
+    model = init_weights(detector_class(cfg)(cfg), seed)
     return model.eval().to(device)
 
 
@@ -59,7 +69,8 @@ def build_trainer(cfg: Optional[OcRFDetConfig] = None, device=None,
     mode on `device`, AdamW state, EMA, step 0."""
     device = resolve_device(device)
     cfg = cfg or ocrfdet_config()
-    model = init_weights(OcRFDet(cfg, render_heads=True), seed).to(device)
+    model = init_weights(detector_class(cfg)(cfg, render_heads=True),
+                         seed).to(device)
     return TrainState(cfg, model, steps_per_epoch=steps_per_epoch, seed=seed)
 
 

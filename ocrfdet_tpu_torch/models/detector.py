@@ -52,9 +52,6 @@ from .view_transformer import (CameraParams, LSSViewTransformer,
 
 def check_supported(cfg: OcRFDetConfig) -> None:
     """Raise on the parts of the config this port does not run yet."""
-    if cfg.vggt_teacher is not None:
-        raise NotImplementedError(
-            "the VGGT teacher (GeoEnhDet) is not ported yet")
     p = cfg.parallel
     if p.space_axis > 1 and (p.shard_cameras or p.shard_vt or p.shard_bev
                              or p.shard_render):
@@ -179,14 +176,17 @@ class OcRFDet(nn.Module):
             aux = dict(depth=depth, semantic=semantic)
         with towers():
             bev = self.pre_process(bev)[0]
+        if is_key:          # for GeoEnhDet's distillation
+            aux["fpn_key"] = fpn
         return bev, aux, stem
 
     def forward(self, batch: Dict[str, torch.Tensor]):
         """Returns (preds, aux): preds is one dict per task of
         channel-last [B,H,W,ch] maps; aux holds the key frame's depth
-        [B,N,h,w,D] and semantic [B,N,h,w,2] and, with `with_ocrf`, its
-        bev_mask_logit and opacity_bev_logit [B,Y,X,1] and, in train
-        mode, the render branch's outputs."""
+        [B,N,h,w,D], semantic [B,N,h,w,2] and FPN features fpn_key
+        [B,N,C,h',w'] and, with `with_ocrf`, its bev_mask_logit and
+        opacity_bev_logit [B,Y,X,1] and, in train mode, the render
+        branch's outputs."""
         cfg = self.cfg
         imgs = batch["imgs"]
         F_total = imgs.shape[1]

@@ -2,6 +2,8 @@
 
   * `CustomFPN`: single-output FPN over (C4, C5): lateral 1x1 convs,
     top-down nearest upsample + add, 3x3 output conv.
+  * `resize_bilinear_antialiased`: `jax.image.resize`'s bilinear
+    (GeoEnhDet's teacher input and aligner output);
   * `FPN_LSS`: BEV neck: bilinear-up the deepest BEV feature, concat
     with the shallow one, 2x (conv3x3+BN+ReLU), then x2 upsample +
     conv3x3+BN+ReLU + conv1x1.
@@ -21,6 +23,18 @@ def resize_bilinear(x, out_hw):
     """Bilinear resize of an NCHW batch, align_corners=True."""
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=True)
+
+
+def resize_bilinear_antialiased(x, out_hw):
+    """`jax.image.resize(x, ..., method="bilinear")` of a channel-last
+    [B, H, W, C] batch (the JAX package's `resize_bilinear(...,
+    align_corners=False)`): half-pixel centres, and a triangle kernel
+    widened where a side shrinks. F.interpolate's antialiased bilinear
+    has the same weights, borders included (tests/test_torch_geoenh.py
+    holds it to JAX)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1)
 
 
 class CustomFPN(nn.Module):

@@ -2,8 +2,12 @@
 
   python -m ocrfdet_tpu_torch.tools.train \
       --infos data/bevdetv2-nuscenes_infos_train.pkl \
-      --work-dir work/ocrfdet [--tiny] [--resume] [--device cuda]
+      --work-dir work/ocrfdet [--tiny | --geoenh [--vggt-ckpt PATH] |
+      --frames8] [--resume] [--device cuda]
 
+`--geoenh` trains GeoEnhDet (`geoenh_config()`, batch 4) with its frozen
+VGGT-1B teacher, whose weights are seeded random unless `--vggt-ckpt`
+names the released checkpoint; `--frames8` the 8-frame variant.
 Reads the info file and its images through the augmenting pipeline
 (CBGS resampling, 8 loader threads), trains `optim.max_epochs` epochs
 with the reference's epoch gates, and writes a checkpoint and
@@ -16,7 +20,31 @@ import argparse
 import dataclasses
 
 
-def main(argv=None):
+def select_config(args):
+    """The config the options name, with the JAX tool's precedence:
+    --tiny, then --geoenh (with --vggt-ckpt), then --frames8, else the
+    flagship; then --no-ocrf and --batch-size."""
+    from ..config import (geoenh_config, ocrfdet_8f_config, ocrfdet_config,
+                          tiny_config)
+    if args.tiny:
+        cfg = tiny_config()
+    elif args.geoenh:
+        cfg = geoenh_config()
+        if args.vggt_ckpt:
+            cfg = dataclasses.replace(cfg, vggt_teacher=dataclasses.replace(
+                cfg.vggt_teacher, ckpt_path=args.vggt_ckpt))
+    elif args.frames8:
+        cfg = ocrfdet_8f_config()
+    else:
+        cfg = ocrfdet_config()
+    if args.no_ocrf:
+        cfg = dataclasses.replace(cfg, with_ocrf=False)
+    if args.batch_size:
+        cfg = dataclasses.replace(cfg, batch_size=args.batch_size)
+    return cfg
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--infos", required=True)
     ap.add_argument("--work-dir", default="work/ocrfdet")
@@ -36,28 +64,20 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     if args.multihost:
         raise NotImplementedError(
             "--multihost: multi-process training is ROADMAP item 13")
-    if args.geoenh or args.vggt_ckpt:
-        raise NotImplementedError(
-            "--geoenh/--vggt-ckpt: GeoEnhDet is ROADMAP item 15")
-    if args.frames8:
-        raise NotImplementedError(
-            "--frames8: the 8-frame variant is ROADMAP item 14")
 
-    from ..config import ocrfdet_config, tiny_config
     from ..data.dataset import Loader, NuScenesDataset
     from ..train.trainer import Trainer
 
-    cfg = tiny_config() if args.tiny else ocrfdet_config()
-    if args.no_ocrf:
-        cfg = dataclasses.replace(cfg, with_ocrf=False)
-    if args.batch_size:
-        cfg = dataclasses.replace(cfg, batch_size=args.batch_size)
-
+    cfg = select_config(args)
     dataset = NuScenesDataset(cfg, args.infos, is_train=True)
     loader = Loader(dataset, cfg.batch_size)
     trainer = Trainer(cfg, args.work_dir, steps_per_epoch=len(loader),

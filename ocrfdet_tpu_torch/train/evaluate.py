@@ -30,14 +30,16 @@ def ema_detector(cfg: OcRFDetConfig, source: Union[TrainState, Mapping],
     parameters and BatchNorm statistics are the EMA of `source`, a
     `TrainState` or a checkpoint (`TrainState.state_dict()`). The EMA
     holds the training model's keys, render heads included; a key of the
-    eval model that it lacks raises. (`num_batches_tracked`, which eval
-    mode does not read, stays 0.)"""
+    eval model that it lacks raises. For GeoEnhDet the eval model is the
+    student alone: eval never runs the teacher or the aligner, and the
+    EMA holds no copy of the frozen teacher. (`num_batches_tracked`,
+    which eval mode does not read, stays 0.)"""
     device = entry.resolve_device(device)
     if isinstance(source, TrainState):
         source = source.state_dict()
     ema = dict(source["ema_params"])
     ema.update(source["ema_stats"])
-    model = OcRFDet(cfg)
+    model = OcRFDet(cfg)     # without GeoEnhDet's teacher and aligner
     sd = model.state_dict()
     missing = [k for k in sd
                if k not in ema and not k.endswith("num_batches_tracked")]
@@ -50,9 +52,10 @@ def ema_detector(cfg: OcRFDetConfig, source: Union[TrainState, Mapping],
 
 
 def raw_detector(cfg: OcRFDetConfig, state: TrainState) -> OcRFDet:
-    """An eval-mode `OcRFDet(cfg)` (no render heads) on the training
-    model's device holding its raw parameters and BatchNorm
-    statistics (a short run's EMA has barely moved)."""
+    """An eval-mode `OcRFDet(cfg)` (no render heads; for GeoEnhDet, no
+    teacher or aligner) on the training model's device holding its raw
+    parameters and BatchNorm statistics (a short run's EMA has barely
+    moved)."""
     model = OcRFDet(cfg)
     trained = state.model.state_dict()
     model.load_state_dict({k: trained[k] for k in model.state_dict()},

@@ -9,8 +9,10 @@ ocrfdet_tpu/train/optim.py, optax's semantics written out in PyTorch).
     steps, then constant;
   * the render MLPs (`RENDER_LR_KEYS`) get `lr_mult_render` times the
     rate, decayed by `render_lr_decay_per_epoch` every epoch;
-  * a `frozen` partition (the JAX package's frozen VGGT teacher) gets no
-    update and no optimizer state; this config has no member;
+  * the `frozen` partition, GeoEnhDet's VGGT teacher (every parameter
+    under the top-level `aggregator`), gets no gradient, no update, no
+    optimizer state and no EMA copy; the clip's global norm is that of
+    the other parameters (JAX's frozen gradients are zeros);
   * MEGVII EMA over the parameters and the BatchNorm statistics, decay
     0.999 (1 - exp(-(updates + 10560) / 2000)).
 Each schedule reads the count of committed updates, as optax's counts.
@@ -37,8 +39,8 @@ def is_render_param(name: str) -> bool:
 
 
 def is_frozen_param(name: str) -> bool:
-    """The JAX package freezes the top-level `aggregator` (the VGGT
-    teacher of GeoEnhDet); nothing of OcRFDet is frozen."""
+    """The top-level `aggregator`, the VGGT teacher of GeoEnhDet, is
+    frozen, as in the JAX package; nothing of OcRFDet is."""
     return name.split(".", 1)[0] == "aggregator"
 
 

@@ -6,8 +6,11 @@ metrics log (counterpart of ocrfdet_tpu/train/trainer.py on one device).
   * the render loss's box mask from epoch 2 on;
   * MEGVIIEMAHook -> the EMA inside `train_step`; a checkpoint holds the
     raw and the EMA weights;
-  * CheckpointHook -> `torch.save` of the whole `TrainState` per epoch,
-    `latest.json` naming the newest, and `resume()`.
+  * CheckpointHook -> `torch.save` of the whole `TrainState` per epoch
+    (GeoEnhDet's frozen teacher included, as the JAX package's),
+    `latest.json` naming the newest, and `resume()`;
+  * GeoEnhDet with `vggt_teacher.ckpt_path`: the released VGGT weights
+    grafted onto the teacher at `init_state`.
 
 The loader's threads decode and augment on the host; every CUDA call
 (the copy to the card included) happens on the thread that iterates.
@@ -73,20 +76,31 @@ class Trainer:
         self.state: Optional[entry.TrainState] = None
 
     def init_state(self):
-        """The seeded training model (render heads on), AdamW, EMA."""
+        """The seeded training model (render heads on), AdamW, EMA; with
+        a teacher checkpoint, its weights in the frozen teacher."""
+        t0 = time.perf_counter()
         self.state = entry.build_trainer(
             self.cfg, self.device, seed=self.cfg.seed,
             steps_per_epoch=self.steps_per_epoch)
+        tcfg = self.cfg.vggt_teacher
+        if tcfg is not None and tcfg.ckpt_path:
+            from ..models.vggt import load_torch_weights
+            load_torch_weights(self.state.model.aggregator, tcfg.ckpt_path)
+            print(f"loaded VGGT teacher weights from {tcfg.ckpt_path}")
         n_params = sum(p.numel() for p in self.state.model.parameters())
-        print(f"model parameters: {n_params / 1e6:.2f}M")
+        print(f"model parameters: {n_params / 1e6:.2f}M (built in "
+              f"{time.perf_counter() - t0:.1f} s)")
 
     # -------------------------------------------------- checkpointing
     def save(self, epoch: int):
         path = os.path.abspath(
             os.path.join(self.work_dir, f"ckpt_epoch_{epoch}.pt"))
+        t0 = time.perf_counter()
         torch.save(self.state.state_dict(), path)
         with open(os.path.join(self.work_dir, "latest.json"), "w") as f:
             json.dump({"epoch": epoch, "path": path}, f)
+        print(f"saved {path} ({os.path.getsize(path) / 1e9:.3f} GB in "
+              f"{time.perf_counter() - t0:.1f} s)")
 
     def resume(self) -> int:
         """Load the checkpoint `latest.json` names into the state; the

@@ -1,7 +1,8 @@
 """Loss assembly (counterpart of ocrfdet_tpu/train/trainstep.py): the
 depth and semantic losses, the BEV mask and opacity losses, the render
-losses and the CenterHead losses of every task, in one dict. On one
-device the JAX package's cross-replica mean (`mean_fn`) is the identity.
+losses, GeoEnhDet's two distillation losses and the CenterHead losses of
+every task, in one dict. On one device the JAX package's cross-replica
+mean (`mean_fn`) is the identity.
 """
 from __future__ import annotations
 
@@ -55,6 +56,10 @@ def compute_losses(cfg: OcRFDetConfig, preds, aux,
             aux["render_depth_g"], aux["render_depth_n"],
             aux["render_gt_depth"], batch["render_box_mask"],
             batch["use_box_mask"]))
+
+    for k in ("loss_Smoothl1_KD", "loss_cos_KD"):    # GeoEnhDet
+        if k in aux:
+            losses[k] = aux[k]
 
     tgts = {k: batch[k] for k in ("heatmaps", "anno_boxes", "inds", "masks")}
     losses.update(center_head_loss(preds, tgts, cfg.head.code_weights,

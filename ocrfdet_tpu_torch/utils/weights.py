@@ -11,11 +11,19 @@ after flax's scopes, so a flax path `a/b/Conv_0/kernel` becomes the key
     spatially flipped: flax's `ConvTranspose` ('SAME', kernel = stride,
     transpose_kernel=False) gives out[s*m + r] = x[m] * K[k-1-r], while
     torch's `ConvTranspose2d` gives out[s*m + r] = x[m] * W[r];
-  * Dense kernel [in,out] -> [out,in];
+  * Dense kernel [in,out] -> [out,in]; the 3-D `DenseGeneral` kernels
+    of flax's `MultiHeadDotProductAttention` flatten their head axes
+    first: `query`/`key`/`value` [in, heads, hd] -> [heads*hd, in],
+    `out` [heads, hd, out] -> [out, heads*hd], and a [heads, hd] bias
+    -> [heads*hd];
+  * LayerNorm scale/bias -> weight/bias;
   * BN scale/bias/mean/var -> weight/bias/running_mean/running_var
     (+ num_batches_tracked = 0);
-  * the raw parameters in `RAW_PARAMS` (flax `self.param` leaves that
-    are not kernels) as they are.
+  * the raw parameters (flax `self.param` leaves that are not kernels)
+    as they are: those in `RAW_PARAMS`, and those a module lists in its
+    `raw_inits` attribute ({leaf name: (kind, argument)} of their flax
+    init, where the init depends on the module, as the VGGT blocks'
+    layer scales do).
 `load_flax_variables` loads the result with strict=True, so a key left
 over or missing on either side raises.
 """
@@ -50,11 +58,15 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def flax_to_state_dict(variables: Mapping,
-                       conv_transpose: Collection[str] = ()
+                       conv_transpose: Collection[str] = (),
+                       raw_names: Collection[str] = ()
                        ) -> Dict[str, torch.Tensor]:
     """`conv_transpose`: the scopes (dotted paths) whose 4-D kernels
-    belong to a flax `ConvTranspose` (see `conv_transpose_scopes`)."""
+    belong to a flax `ConvTranspose` (see `conv_transpose_scopes`);
+    `raw_names`: leaf names of raw parameters besides `RAW_PARAMS` (see
+    `raw_param_names`)."""
     sd: Dict[str, torch.Tensor] = {}
+    raw = set(raw_names)
 
     def key(scope, name):          # a bare module's leaves have no scope
         return f"{scope}.{name}" if scope else name
@@ -70,11 +82,18 @@ def flax_to_state_dict(variables: Mapping,
         elif leaf == "kernel" and a.ndim == 2:
             sd[key(scope, "weight")] = torch.from_numpy(
                 np.array(a.T, order="C"))
+        elif leaf == "kernel" and a.ndim == 3:
+            # DenseGeneral: the attention's `out` contracts its first two
+            # axes, `query`/`key`/`value` their first
+            a = (a.reshape(-1, a.shape[2]) if scope.rpartition(".")[2]
+                 == "out" else a.reshape(a.shape[0], -1))
+            sd[key(scope, "weight")] = torch.from_numpy(
+                np.array(a.T, order="C"))
         elif leaf == "scale":
             sd[key(scope, "weight")] = torch.from_numpy(a.copy())
         elif leaf == "bias":
-            sd[key(scope, "bias")] = torch.from_numpy(a.copy())
-        elif leaf in RAW_PARAMS:
+            sd[key(scope, "bias")] = torch.from_numpy(a.reshape(-1).copy())
+        elif leaf in RAW_PARAMS or leaf in raw:
             sd[path] = torch.from_numpy(a.copy())
         else:
             raise KeyError(f"unmapped flax parameter {path}")
@@ -95,10 +114,16 @@ def conv_transpose_scopes(model: nn.Module) -> Set[str]:
             if isinstance(m, nn.ConvTranspose2d)}
 
 
+def raw_param_names(model: nn.Module) -> Set[str]:
+    """The leaf names `model`'s modules list in their `raw_inits`."""
+    return {n for m in model.modules() for n in getattr(m, "raw_inits", {})}
+
+
 def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Copy flax variables into `model` (strict: every key must match)."""
     model.load_state_dict(flax_to_state_dict(
-        variables, conv_transpose_scopes(model)), strict=True)
+        variables, conv_transpose_scopes(model), raw_param_names(model)),
+        strict=True)
     return model
 
 
@@ -107,7 +132,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init on the CPU generator, flax's defaults:
     truncated-normal (lecun) conv/dense/transposed-conv kernels, zero
     biases (or a module's `init_bias`), BN scale 1 / shift 0 / mean 0 /
-    var 1, and the raw parameters' own inits (`RAW_PARAMS`)."""
+    var 1, and the raw parameters' own inits (a module's `raw_inits`,
+    else `RAW_PARAMS`); LayerNorm keeps scale 1 / shift 0."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
@@ -127,15 +153,17 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 m.bias.fill_(getattr(m, "init_bias", 0.0))
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
-    for name, p in model.named_parameters():
-        kind, arg = RAW_PARAMS.get(name.rsplit(".", 1)[-1], (None, None))
-        cpu = torch.empty(p.shape, dtype=torch.float32)
-        if kind == "normal":
-            p.copy_(cpu.normal_(0.0, arg, generator=g))
-        elif kind == "uniform":
-            p.copy_(cpu.uniform_(0.0, arg, generator=g))
-        elif kind == "zeros":
-            p.zero_()
-        elif kind == "constant":
-            p.fill_(arg)
+    for m in model.modules():
+        for leaf, p in m.named_parameters(recurse=False):
+            kind, arg = (getattr(m, "raw_inits", {}).get(leaf)
+                         or RAW_PARAMS.get(leaf, (None, None)))
+            cpu = torch.empty(p.shape, dtype=torch.float32)
+            if kind == "normal":
+                p.copy_(cpu.normal_(0.0, arg, generator=g))
+            elif kind == "uniform":
+                p.copy_(cpu.uniform_(0.0, arg, generator=g))
+            elif kind == "zeros":
+                p.zero_()
+            elif kind == "constant":
+                p.fill_(arg)
     return model

@@ -86,8 +86,8 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    """Spatial sharding, the VGGT teacher (GeoEnhDet) and the profiling
-    ablations (`vt.ablate`) are not ported, and a renderer other than
+    """Spatial sharding and the profiling ablations (`vt.ablate`) are
+    not ported, and a renderer other than
     "dense", "xla" and "pallas" is refused; training is ported, but an
     eval model (no render heads) refuses it."""
     import dataclasses
@@ -100,8 +100,10 @@ def test_unported_options_raise():
              make_batch(model.cfg, batch_size=1, with_targets=True).items()}
     with pytest.raises(ValueError, match="render_heads=True"):
         model.train()(batch)
-    with pytest.raises(NotImplementedError, match="VGGT"):
-        OcRFDet(tiny_config(vggt_teacher=VGGTTeacherConfig()))
+    # GeoEnhDet's teacher is ported: a config with one is no longer
+    # refused (OcRFDet builds its student, GeoEnhDet adds the teacher)
+    OcRFDet(tiny_config(vggt_teacher=VGGTTeacherConfig(
+        depth=1, vit_depth=1, embed_dim=32, num_heads=4)))
     cfg = tiny_config(with_ocrf=False)
     sharded = dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, space_axis=2, shard_cameras=True))

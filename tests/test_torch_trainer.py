@@ -11,7 +11,9 @@ set on disk through the augmenting loader:
   from the checkpoint; `metrics.jsonl` is written with the JAX keys and
   the loader wait;
 * the tools refuse what is not ported and the card when there is none,
-  and `tools.eval` evaluates the checkpoint on the CPU when asked.
+  the train tool picks the JAX tool's config for --geoenh (with
+  --vggt-ckpt) and --frames8, and `tools.eval` evaluates the checkpoint
+  on the CPU when asked.
 """
 import dataclasses
 import json
@@ -159,12 +161,36 @@ def test_eval_tool_on_the_cpu(runs, capsys):
     assert '"mAP"' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag,item", [("--multihost", "13"),
-                                       ("--geoenh", "15"),
-                                       ("--frames8", "14")])
+@pytest.mark.parametrize("flag,item", [("--multihost", "13")])
 def test_train_tool_refuses_unported_options(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         train_tool.main(["--infos", "unused.pkl", flag])
+
+
+def _jax_geoenh(ckpt=None):
+    cfg = jconfig.geoenh_config()
+    return dataclasses.replace(cfg, vggt_teacher=dataclasses.replace(
+        cfg.vggt_teacher, ckpt_path=ckpt)) if ckpt else cfg
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--geoenh"], lambda: _jax_geoenh()),
+    (["--geoenh", "--vggt-ckpt", "vggt/model.pt"],
+     lambda: _jax_geoenh("vggt/model.pt")),
+    (["--frames8"], jconfig.ocrfdet_8f_config),
+    (["--geoenh", "--frames8"], lambda: _jax_geoenh()),
+    (["--tiny", "--geoenh"], jconfig.tiny_config),
+    (["--frames8", "--batch-size", "1", "--no-ocrf"],
+     lambda: jconfig.ocrfdet_8f_config(batch_size=1, with_ocrf=False))],
+    ids=["geoenh", "geoenh_ckpt", "frames8", "geoenh_over_frames8",
+         "tiny_over_geoenh", "frames8_overrides"])
+def test_train_tool_selects_the_jax_tools_config(flags, want):
+    """The JAX tool's precedence (tools_tpu/train.py): --tiny, then
+    --geoenh with --vggt-ckpt, then --frames8, then the overrides;
+    checked without building a model."""
+    args = train_tool.parse_args(["--infos", "unused.pkl"] + flags)
+    assert dataclasses.asdict(train_tool.select_config(args)) == \
+        dataclasses.asdict(want())
 
 
 def test_tools_and_trainer_need_the_card_unless_asked(runs):
