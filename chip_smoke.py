@@ -68,7 +68,8 @@ Phases, each printing a line:
      per request; the metrics dict, the results JSON's sample count);
  10. K1, K2-K4 forward and K2-K4 backward at the GeoEnhDet training
      step's batch 4, each against its plain version with the batch-1
-     and batch-2 tolerances;
+     and batch-2 tolerances; then K1 at batch 1, 2 and 4 timed by the
+     profiler's traces and by CUDA events around the same calls;
  11. GeoEnhDet training (`geoenh_config()`: batch 4, 512-channel FPN,
      the VGGT-1B teacher at 294 x 518 with seeded random weights, bf16
      towers) through `entry.train_step`: 3 warm-up steps, a window of 5
@@ -87,7 +88,16 @@ Phases, each printing a line:
      `entry.infer`: 20 requests, 8 launches of each of K1-K4 a request,
      latency, then the fp32 request with the kernels and with their
      plain versions, as phase 5;
- 14. one JSON line describing every kernel (the nine kernel functions
+ 14. the measuring tools (`ocrfdet_tpu_torch/tools/`): `step_variants`
+     in this process at flagship batch 2 (full, the "sample", "splat"
+     and "render" seams, no_stereo and no_ocrf, interleaved, 2 warm-up
+     and 3 timed steps each; each variant's kernel launches a step must
+     equal `variant_launches`' table; step median and busy time a
+     step), `benchmark_infer` (flagship, 3 warm-up + 20), `get_flops`
+     (flagship, eval and train; the kernels' rows from ops/work.py) and
+     `profile_step --fwd-only` (its categories must add up to its busy
+     time within 1%);
+ 15. one JSON line describing every kernel (the nine kernel functions
      and K4's backward binning; launches from the training window;
      forwards timed at batch 1 with their batch-2 times under `*_b2`
      and the batch-4 times under `*_b4`), the card's name and power
@@ -100,6 +110,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import subprocess
@@ -111,8 +122,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-H100_BYTES_PER_S = 3.35e12      # HBM3, SXM data sheet
-H100_FP32_FLOP_PER_S = 67e12    # fp32 outside the tensor cores
+from ocrfdet_tpu_torch.ops import work
+from ocrfdet_tpu_torch.ops.work import bound, nbytes
 
 
 def log(msg: str) -> None:
@@ -184,16 +195,6 @@ def device_ms_by_kernel(fn, reps: int) -> dict:
     return out
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 def close(got, want, rtol, atol_scale):
     """(max |got - want|, scale, ok) with atol = atol_scale x scale."""
     scale = max(float(want.abs().max()), 1e-30)
@@ -215,35 +216,10 @@ def plain_grads(fn, args, diff, cot):
     return again(), again
 
 
-def _k1_row_loads(depths, az, bz, a2, b2, H, W):
-    """(in-image taps, row loads) that K1's design implies for these
-    coordinates, worked out on the host with the plain version's
-    coordinate formula: a walk loads a tap's row unless the plane before
-    had the same pixel in the image. The kernel's load-counting build
-    measures the loads themselves (`cost_volume_row_loads`)."""
-    BN = az.shape[0] * az.shape[1]
-    dv = depths[:, None, None]
-    den = dv * az.reshape(1, BN, -1) + bz.reshape(1, BN, 1)
-    front = den >= 1e-3
-    safe = torch.where(front, den, torch.ones_like(den))
-    px = (dv * a2[..., 0].reshape(1, BN, -1) + b2[..., 0].reshape(1, BN, 1)) / safe
-    py = (dv * a2[..., 1].reshape(1, BN, -1) + b2[..., 1].reshape(1, BN, 1)) / safe
-    ids = []
-    for dy in (0, 1):
-        for dx in (0, 1):
-            xi, yi = px.floor() + dx, py.floor() + dy
-            inb = front & (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
-            ids.append(torch.where(inb, yi * W + xi, torch.full_like(xi, -1)))
-    ids = torch.stack(ids, 1)                         # [D, 4, BN, HW]
-    inb = ids >= 0
-    held = torch.zeros_like(inb)     # (an out-of-image id, -1, never matches)
-    held[1:] = (ids[1:, :, None] == ids[:-1, None]).any(2)
-    return int(inb.sum()), int((inb & ~held).sum())
-
-
-def _k1_case(cfg, dev, B):
-    """K1 at flagship shape, batch B: post-ReLU stem-like features with the
-    frame-1 geometry of make_batch (1 m of ego motion)."""
+def k1_inputs(cfg, dev, B):
+    """K1's arguments at flagship shape, batch B: post-ReLU stem-like
+    features with the frame-1 geometry of make_batch (1 m of ego
+    motion)."""
     from ocrfdet_tpu_torch.entry import make_batch
     from ocrfdet_tpu_torch.geometry.frustum import make_frustum
     from ocrfdet_tpu_torch.ops import cost_volume as cvm
@@ -264,8 +240,17 @@ def _k1_case(cfg, dev, B):
         batch["post_rots"][:, f], batch["post_trans"][:, f], (H, W),
         (Hc, Wc))
     depths = frustum[:, 0, 0, 2].contiguous()
-    bias = cfg.vt.depthnet.cost_volume_bias
-    args = (curr, prev, depths, az, bz, a2, b2, bias)
+    return (curr, prev, depths, az, bz, a2, b2,
+            cfg.vt.depthnet.cost_volume_bias)
+
+
+def _k1_case(cfg, dev, B):
+    """K1 at flagship shape, batch B (`k1_inputs`), against its plain
+    version, and its row loads counted."""
+    from ocrfdet_tpu_torch.ops import cost_volume as cvm
+
+    args = k1_inputs(cfg, dev, B)
+    curr, prev, depths, az, bz, a2, b2, bias = args
     got = cvm.cost_volume(*args)
     want = cvm.cost_volume_plain(*args)
     torch.cuda.synchronize()
@@ -278,14 +263,13 @@ def _k1_case(cfg, dev, B):
     ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-3)) and flips == 0
     ms = device_ms(lambda: cvm.cost_volume(*args), reps=20)
     plain_ms = device_ms(lambda: cvm.cost_volume_plain(*args), reps=2)
-    # the work this data needs: 2 flops per channel per in-image tap,
-    # 3 per channel per sample (sub, abs, add)
-    taps, model = _k1_row_loads(depths, az, bz, a2, b2, Hc, Wc)
+    # the work this data needs (ops/work.py), and the tap rows the
+    # kernel's load-counting build loads against its design's rule
+    wk = work.cost_volume_work(curr, prev, depths, az, bz, a2, b2, want)
+    taps, model, moved, flops = (wk["taps"], wk["row_loads"], wk["bytes"],
+                                 wk["flops"])
     loads = cvm.cost_volume_row_loads(*args)
     samples = want.numel()
-    flops = C * (2 * taps + 3 * samples)
-    coef_bytes = (az.numel() + a2.numel() + bz.numel() + b2.numel()) * 4
-    moved = nbytes(curr, prev, depths, want) + coef_bytes
     bound_ms, bound_by = bound(moved, flops)
     log(f"[k1] cost_volume batch {B} {tuple(got.shape)}: max_abs_err "
         f"{max_abs:.3e} max_rel_err {max_rel:.3e} flag_flips {flips} (tol "
@@ -394,9 +378,9 @@ def _k2_case(cfg, dev, B):
     idx = bidx * cells + cell[keep].long()
     acc = torch.zeros((B * cells, C), device=dev)
     library_ms = device_ms(lambda: acc.index_add_(0, idx, rows), reps=50)
-    n_valid = int(keep.sum())
-    moved = nbytes(w, pix, cell, featp, want)
-    bound_ms, bound_by = bound(moved, 2 * C * n_valid)
+    wk = work.bev_pool_work(w, pix, cell, featp, want, cells)
+    n_valid, moved = wk["points"], wk["bytes"]
+    bound_ms, bound_by = bound(moved, wk["flops"])
     log(f"[k2] bev_pool batch {B} {tuple(got.shape)}: max_abs_err "
         f"{max_abs:.3e} (tol rtol 1e-5 atol 1e-5), run to run "
         f"{'bitwise equal' if same else 'DIFFERENT'}: "
@@ -508,11 +492,11 @@ def _k3_case(cfg, dev, B):
     ms = device_ms(lambda: htp.ht_pool_points(*args), reps=50)
     plain_ms = device_ms(lambda: htp.ht_pool_points_plain(*args), reps=5)
     library_ms = device_ms(library, reps=20)
-    n_valid = int(args[4].sum())
+    wk = work.ht_pool_work(*args, want)
+    n_valid, moved = wk["points"], wk["bytes"]
     C, pillars = args[1].shape[-1], B * args[2].shape[3]
     staged = nbytes(*args[2:])
-    moved = nbytes(*args, want)
-    bound_ms, bound_by = bound(moved, n_valid * (2 * C + 1))
+    bound_ms, bound_by = bound(moved, wk["flops"])
     log(f"[k3] ht_pool batch {B} {tuple(got.shape)}: max_abs_err "
         f"{max_abs:.3e} (max |out| {scale:.3f}; tol rtol 1e-5 atol 1e-5 x "
         f"scale), run to run {'bitwise equal' if same else 'DIFFERENT'}: "
@@ -579,10 +563,9 @@ def _k4_case(cfg, dev, B, C):
                              padding_mode="zeros", align_corners=False)
     lib_err = float((library()[:, :, 0].permute(0, 2, 1) - got).abs().max())
     library_ms = device_ms(library, reps=50)
-    moved = nbytes(maps, px, py, want)
-    # operations: 4 products and 3 sums per output value, ~12 per point
-    # for its tap weights
-    bound_ms, bound_by = bound(moved, 7 * got.numel() + 12 * px.numel())
+    wk = work.point_sample_work(maps, px, py, want)
+    moved = wk["bytes"]
+    bound_ms, bound_by = bound(moved, wk["flops"])
     log(f"[k4] point_sample batch {B} C={C} {tuple(got.shape)}: max_abs_err "
         f"{max_abs:.3e} (tol: bit for bit: {'ok' if ok else 'FAIL'}); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
@@ -658,12 +641,12 @@ def check_k2_bwd(cfg, dev, B=2):
     gidx = pidx[:, None].expand(-1, C)
     library_ms = (device_ms(lambda: acc.index_add_(0, pidx, rows), reps=20)
                   + device_ms(lambda: torch.gather(flat, 0, gidx), reps=20))
-    n_valid = int(keep.sum())
     dw, dfeat = got["lss"][0]
     # the timed LSS path names a pixel's points in closed form: pix is
     # never read, so its bytes are not in the bound
-    moved = nbytes(w, cell, featp, cot, dw, dfeat)
-    bound_ms, bound_by = bound(moved, 4 * C * n_valid)
+    wk = work.bev_pool_backward_work(w, cell, featp, cot, dw, dfeat, cells)
+    n_valid, moved = wk["points"], wk["bytes"]
+    bound_ms, bound_by = bound(moved, wk["flops"])
     log(f"[k2-bwd] bev_pool backward g {tuple(cot.shape)} -> dw "
         f"{tuple(dw.shape)}, dfeat {tuple(dfeat.shape)}: "
         + "; ".join(f"{path}: max_abs_err dw {e1:.3e} (max {pw.abs().max():.3f}),"
@@ -743,9 +726,9 @@ def check_k3_bwd(cfg, dev, B=2):
     parts = device_ms_by_kernel(
         lambda: htp.ht_pool_order(pix, di, wv, hw, D), reps=20)
     plain_ms = device_ms(plain_again, reps=5)
-    n_valid = int(wv.sum())
-    moved = nbytes(*args, cot, ddep, dctx)
-    bound_ms, bound_by = bound(moved, n_valid * (4 * C + 2))
+    wk = work.ht_pool_backward_work(*args, cot, ddep, dctx)
+    n_valid, moved = wk["points"], wk["bytes"]
+    bound_ms, bound_by = bound(moved, wk["flops"])
     ok = ok1 and ok2 and same and ordered
     log(f"[k3-bwd] ht_pool backward dout {tuple(cot.shape)} -> ddep "
         f"{tuple(ddep.shape)}, dctx {tuple(dctx.shape)}: max_abs_err ddep "
@@ -782,22 +765,6 @@ def events_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def k4_bwd_bytes(px, py, dout, H, W):
-    """The bytes K4's backward must move: px and py, the dout rows of
-    the points with a tap in the image (in the 32-byte sectors that hold
-    them, counted on the host) and one write of dmap [BN,H,W,C]; and
-    those points' count."""
-    fx, fy = torch.floor(px), torch.floor(py)
-    inside = ((fx >= -1) & (fx <= W - 1) & (fy >= -1)
-              & (fy <= H - 1)).reshape(-1)
-    row = dout.shape[-1] * dout.element_size()
-    first = torch.nonzero(inside).reshape(-1) * row
-    sectors = torch.unique(torch.cat([first // 32, (first + row - 1) // 32]))
-    dmap = px.shape[0] * H * W * dout.shape[-1] * 4
-    return (nbytes(px, py) + 32 * sectors.numel() + dmap,
-            int(inside.sum()))
 
 
 def check_k4_bwd(cfg, dev, B=2):
@@ -862,15 +829,14 @@ def check_k4_bwd(cfg, dev, B=2):
     cot_l = cot.permute(0, 2, 1)[:, :, None].contiguous()
     library_ms = device_ms(lambda: torch.autograd.grad(
         out, m_nchw, cot_l, retain_graph=True), reps=20)
-    moved, n_in = k4_bwd_bytes(px, py, cot, H, W)
-    # operations: ~20 a point for its base tap and tiles, ~12 for its tap
-    # weights and 2 C a contribution (a product and a sum)
-    bound_ms, bound_by = bound(moved, 20 * px.numel() + n_in * (12 + 8 * C))
+    wk = work.point_sample_backward_work(px, py, cot, H, W)
+    moved, n_in = wk["bytes"], wk["points"]
+    bound_ms, bound_by = bound(moved, wk["flops"])
     all_dout = nbytes(px, py, cot, dmap)
     keys = int(lengths.sum())
     # the binning must read px and py and write each key once
-    order_bound_ms, order_bound_by = bound(nbytes(px, py) + 8 * keys,
-                                           20 * px.numel())
+    wk = work.point_sample_order_work(px, py, keys)
+    order_bound_ms, order_bound_by = bound(wk["bytes"], wk["flops"])
 
     def span(name):
         med, traces, ev = times[name]
@@ -912,26 +878,6 @@ def check_k4_bwd(cfg, dev, B=2):
                    bound_by=order_bound_by, library_ms=None,
                    ms_events=times["binning"][2])
     return backward, binning
-
-
-def _composite_work(attrs, T, n_tx):
-    """K5's work on its input, worked out on the host with the plain
-    version's quantities: live slots, (pixel, live Gaussian) pairs inside
-    the Gaussian's 3-sigma square and pairs that pass the keep test."""
-    from ocrfdet_tpu_torch.ops.splat import composite as ct
-    NT = attrs.shape[0]
-    px, py = ct._pixel_coords(NT, T, n_tx, 16, 16, attrs.device)
-    square = kept = 0
-    for k0 in range(0, attrs.shape[1], ct.CHUNK):
-        c = attrs[:, k0:k0 + ct.CHUNK]
-        q = ct._chunk_quantities(c, px, py)
-        live = (c[..., 7] != 0)[..., None]
-        rad = c[..., 5, None]
-        near = (q["dx"].abs() <= rad) & (q["dy"].abs() <= rad) & live
-        square += int(near.sum())
-        kept += int(q["keep"].sum())
-    return dict(live=int((attrs[..., 7] != 0).sum()), square=square,
-                kept=kept)
 
 
 def sass_mufu(kernel, function: str) -> dict:
@@ -1014,8 +960,8 @@ def check_k5(attrs, T, n_tx):
     bwd = {k: close(d[..., i], pd[..., i], 1e-4, 1e-5)
            for i, k in enumerate(ct.STREAMS)}
     bwd_ok = all(ok for *_, ok in bwd.values())
-    work = _composite_work(attrs, T, n_tx)
-    live, kept = work["live"], work["kept"]
+    cw = work.composite_work(attrs, T, n_tx)
+    live, kept = cw["live"], cw["kept"]
     pairs = live * ct.TILE_PIXELS
     steps = live * (ct.TILE_PIXELS // 32)      # (warp, live Gaussian)
     fwd_ms = device_ms(lambda: ct.composite_forward(attrs, T, n_tx, 16),
@@ -1025,10 +971,7 @@ def check_k5(attrs, T, n_tx):
         attrs, T, n_tx, 16, 16), reps=2)
     bwd_plain = device_ms(lambda: ct.composite_backward_plain(
         *bwd_args[:-1], 16, 16), reps=2)
-    # operations: ~15 per evaluated (pixel, live Gaussian) pair (offsets,
-    # power, exp, alpha, keep), ~8 more per kept pair forward (weight,
-    # RGB, T's running product, crossing and median) and ~45 backward (the
-    # suffix trick and ten chain-rule terms, their sums). Special
+    # operations: ops/work.py's composite_{forward,backward}_work. Special
     # functions (16 results a clock per SM at the card's maximum clock):
     # what the function needs on these streams, one exp per pair inside
     # its Gaussian's square (the only pairs that need it), then forward
@@ -1037,11 +980,13 @@ def check_k5(attrs, T, n_tx):
     # compiled code's MUFU instructions are printed beside it.
     clock = max_sm_clock_hz()
     sfu_rate = H100_SMS * MUFU_PER_SM_CLOCK * clock
-    sfu_fwd = work["square"] + med.numel()
-    sfu_bwd = work["square"] + kept
-    fb_ops = bound(nbytes(attrs, rgb, med, logt), 15 * pairs + 8 * kept)
-    bb_ops = bound(nbytes(attrs, prgb, g_rgb, g_logt, g_med, d),
-                   15 * pairs + 45 * kept)
+    sfu_fwd = cw["square"] + med.numel()
+    sfu_bwd = cw["square"] + kept
+    fw = work.composite_forward_work(attrs, rgb, med, logt, cw)
+    bw = work.composite_backward_work(attrs, prgb, g_rgb, g_logt, g_med, d,
+                                      cw)
+    fb_ops = bound(fw["bytes"], fw["flops"])
+    bb_ops = bound(bw["bytes"], bw["flops"])
     mufu = {name: sass_mufu(k, fn) for name, k, fn in (
         ("forward", ct.KERNEL, "composite_forward_kernel"),
         ("backward", ct.BWD_KERNEL, "composite_backward_kernel"))}
@@ -1060,7 +1005,7 @@ def check_k5(attrs, T, n_tx):
                         / steps for x in (bwd_ms, fwd_ms))
     worst = max(bwd, key=lambda k: bwd[k][0] / bwd[k][1])
     log(f"[k5] composite_tiles attrs {tuple(attrs.shape)} ({live} live "
-        f"slots; of their {pairs} pixel-Gaussian pairs {work['square']} "
+        f"slots; of their {pairs} pixel-Gaussian pairs {cw['square']} "
         f"inside the 3-sigma square, {kept} kept): forward max_abs_err rgb "
         f"{fwd[0][0]:.3e} (max {fwd[0][1]:.3f}), logt {fwd[1][0]:.3e} (max "
         f"{fwd[1][1]:.3f}), median flips {flips}, crossing-slot flips "
@@ -1180,7 +1125,32 @@ def check_kernels_b4(cfg, dev):
            "bev_pool_bwd": check_k2_bwd(cfg, dev, B=4),
            "ht_pool_bwd": check_k3_bwd(cfg, dev, B=4)}
     out["point_sample_bwd"], _ = check_k4_bwd(cfg, dev, B=4)
+    check_k1_timing(cfg, dev)
     return out
+
+
+def check_k1_timing(cfg, dev):
+    """K1 at batch 1, 2 and 4 (`k1_inputs`) timed two ways on the same
+    back-to-back calls: CUDA events around 20 calls, before and after the
+    median of three torch.profiler traces of 20 calls (each kernel time
+    of this script). K1 runs a millisecond or more a call, far longer
+    than its launch, so the events time the device too; the two agree
+    unless the traces are at fault."""
+    from ocrfdet_tpu_torch.ops import cost_volume as cvm
+
+    for B in (1, 2, 4):
+        args = k1_inputs(cfg, dev, B)
+
+        def fn():
+            return cvm.cost_volume(*args)
+        before = events_ms(fn, reps=20)
+        traces = device_ms_traces(fn, reps=20)
+        after = events_ms(fn, reps=20)
+        log(f"[k1-timing] cost_volume batch {B}: profiler median "
+            f"{float(np.median(traces)):.4f} ms (traces "
+            f"{', '.join(f'{t:.4f}' for t in traces)}); CUDA events "
+            f"{before:.4f} ms before, {after:.4f} ms after")
+        del args
 
 
 def _ranged(name, fn, events):
@@ -1629,7 +1599,7 @@ def check_trainer(dev, all_kernels, eval_kernels, per_step, n_steps=2):
             f"and 4 held-out samples in {time.perf_counter() - t0:.1f} s")
         dataset = NuScenesDataset(cfg, train_pkl, is_train=True, cbgs=True)
         loader = Loader(dataset, cfg.batch_size, num_workers=8)
-        work = f"{root}/work"
+        work_dir = f"{root}/work"
 
         def run(trainer, epoch):
             flags = trainer.epoch_flags(epoch)
@@ -1664,7 +1634,8 @@ def check_trainer(dev, all_kernels, eval_kernels, per_step, n_steps=2):
             return flags
 
         t0 = time.perf_counter()
-        trainer = Trainer(cfg, work, steps_per_epoch=len(loader), device=dev)
+        trainer = Trainer(cfg, work_dir, steps_per_epoch=len(loader),
+                          device=dev)
         trainer.init_state()
         log(f"[trainer] Trainer built ({len(dataset)} CBGS samples, "
             f"{len(loader)} steps an epoch) in "
@@ -1675,7 +1646,8 @@ def check_trainer(dev, all_kernels, eval_kernels, per_step, n_steps=2):
         saved = trainer.state.state_dict()
         t_save = time.perf_counter() - t0
         del trainer
-        resumed = Trainer(cfg, work, steps_per_epoch=len(loader), device=dev)
+        resumed = Trainer(cfg, work_dir, steps_per_epoch=len(loader),
+                          device=dev)
         resumed.init_state()
         t0 = time.perf_counter()
         start = resumed.resume()
@@ -1686,7 +1658,7 @@ def check_trainer(dev, all_kernels, eval_kernels, per_step, n_steps=2):
             raise AssertionError(f"resume: epoch {start}, step "
                                  f"{resumed.state.step}, differs in "
                                  f"{diff[:8]}")
-        size = os.path.getsize(f"{work}/ckpt_epoch_0.pt") / 1e9
+        size = os.path.getsize(f"{work_dir}/ckpt_epoch_0.pt") / 1e9
         log(f"[trainer] save(0) ({size:.2f} GB) in {t_save:.1f} s, resume() "
             f"in {t_load:.1f} s: returned 1, step {resumed.state.step}, every parameter, "
             f"buffer, moment, EMA tensor and the generator equal")
@@ -1957,6 +1929,101 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     return launches
 
 
+def variant_launches(per_step):
+    """The launches per training step of each variant the [tools] phase
+    runs, from the code: "full" is the flagship step (`per_step`); the
+    "sample" seam drops K4 (forward, backward and its binning), "splat"
+    and "render" drop K5 (the NeRF alphas still go through K4 for HOA),
+    use_stereo=False drops K1, with_ocrf=False drops K3, K4 and K5."""
+    k3 = {"ht_pool", "ht_pool_bwd", "ht_pool_order"}
+    k4 = {"point_sample", "point_sample_bwd", "point_sample_order"}
+    k5 = {"composite_tiles", "composite_tiles_bwd"}
+    drops = {"full": set(), "ablate_sample": k4, "ablate_splat": k5,
+             "ablate_render": k5, "no_stereo": {"cost_volume"},
+             "no_ocrf": k3 | k4 | k5}
+    return {name: {k: n for k, n in per_step.items() if k not in d}
+            for name, d in drops.items()}
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output kept out of this script's."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def check_tools(dev, per_step):
+    """The measuring tools on the card: `step_variants` in this process
+    (the variants of `variant_launches`, interleaved, 2 warm-up and 3
+    timed steps each, one traced step each for the busy time; each
+    variant's launches per step must equal the table), `benchmark_infer`
+    (flagship, 3 warm-up + 20), `get_flops` (flagship, eval and train)
+    and `profile_step --fwd-only` (its categories must add up to its
+    traced busy time within 1%)."""
+    from ocrfdet_tpu_torch.tools import (benchmark_infer, get_flops,
+                                         profile_step, step_variants)
+
+    table = variant_launches(per_step)
+    t0 = time.perf_counter()
+    variants = step_variants.run(list(table), steps=3, warmup=2,
+                                 batch_size=2, device=dev)
+    for name, r in variants.items():
+        got = {k: n for k, n in r["launches_per_step"].items() if n}
+        if got != table[name] or r["skipped"] or not np.isfinite(
+                r["loss_total"]):
+            raise AssertionError(f"step_variants {name}: launches per step "
+                                 f"{got}, expected {table[name]}; skipped "
+                                 f"{r['skipped']}, loss {r['loss_total']}")
+        delta = ("" if name == "full" else
+                 f", delta vs full {r['delta_ms_vs_full']:.3f} ms step, "
+                 f"{r['delta_busy_ms_vs_full']:.3f} ms busy")
+        log(f"[tools] step_variants {name}: step ms median "
+            f"{r['step_ms_median']:.3f} (steps "
+            f"{', '.join(f'{t:.1f}' for t in r['step_ms'])}), busy "
+            f"{r['busy_ms_per_step']:.3f} ms a step{delta}; launches a step "
+            f"{got} (as the table)")
+    log(f"[tools] step_variants: {len(variants)} variants x 5 steps + 1 "
+        f"traced in {time.perf_counter() - t0:.1f} s")
+    del variants
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bi = _quiet(benchmark_infer.main, ["--warmup", "3", "--iters", "20"])
+    log(f"[tools] benchmark_infer flagship batch 1 ({bi['device']}): "
+        f"{bi['frames_per_s']:.3f} frames/s, {bi['ms_per_batch']:.3f} ms a "
+        f"batch (forward + decode, no NMS); {time.perf_counter() - t0:.1f} s")
+    for mode in ([], ["--train"]):
+        t0 = time.perf_counter()
+        gf = _quiet(get_flops.main, mode)
+        rows = "; ".join(f"{k} x{r['calls']} {r['flops'] / 1e9:.3f} GFLOP "
+                         f"{r['bytes'] / 1e6:.1f} MB"
+                         for k, r in gf["kernels"].items() if r["calls"])
+        log(f"[tools] get_flops flagship {'train' if mode else 'eval'} "
+            f"batch 1: {gf['params'] / 1e6:.3f} M params; forward "
+            f"{gf['torch_flops'] / 1e9:.2f} GFLOP by FlopCounterMode + "
+            f"{gf['kernel_flops'] / 1e9:.3f} GFLOP in the kernels (by "
+            f"ops/work.py: {rows}) = {gf['total_flops'] / 1e9:.2f} GFLOP; "
+            f"{time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ps = _quiet(profile_step.main, ["--fwd-only", "--steps", "3"])
+    total = sum(ps["category_ms"].values())
+    busy = ps["device_busy_ms"]
+    ok = abs(total - busy) <= 0.01 * busy
+    log(f"[tools] profile_step --fwd-only (batch {ps['batch_size']}): busy "
+        f"{busy:.3f} ms a forward, idle {ps['device_idle_share']:.1%}; by "
+        f"category " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                 ps["category_ms"].items())
+        + f" = {total:.3f} ms ({'within' if ok else 'NOT within'} 1% of the "
+        f"busy time); top kernel {ps['top_kernels_ms'][0][0]} "
+        f"{ps['top_kernels_ms'][0][1]:.3f} ms; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError(f"profile_step: categories {total} ms, busy "
+                             f"{busy} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2048,6 +2115,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_slice(ocrfdet_8f_config(batch_size=1), dev, "8f", eval_kernels,
                 checked, n_requests=20)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_tools(dev, per_step)
 
     rows = []
     for k in kernel_list:

@@ -10,7 +10,8 @@ for tests; each must stay field-for-field equal to the JAX package's
 Fields that only the JAX package reads (Pallas window sizes, mesh
 layout) are kept so that the two configs compare equal. The port reads
 `vt.renderer` ("dense": the exact compositor; "xla" and "pallas": the
-tiled renderer with kernel K5) and refuses a non-empty `vt.ablate`.
+tiled renderer with kernel K5) and `vt.ablate` (the profiling seams of
+`models/ocrf/view_transformer_ocrf.py`).
 """
 from __future__ import annotations
 

@@ -57,10 +57,6 @@ def check_supported(cfg: OcRFDetConfig) -> None:
                              or p.shard_render):
         raise NotImplementedError(
             "spatial sharding (parallel.space_axis > 1) is not ported yet")
-    if cfg.vt.ablate:
-        raise NotImplementedError(
-            f"vt.ablate {cfg.vt.ablate}: the profiling seams that skip "
-            f"OcRF sub-blocks are not ported yet")
     if cfg.vt.renderer not in ("dense", "xla", "pallas"):
         raise ValueError(f"vt.renderer {cfg.vt.renderer!r}: 'dense', 'xla' "
                          f"or 'pallas' expected")

@@ -31,10 +31,11 @@ def resize_bilinear_antialiased(x, out_hw):
     align_corners=False)`): half-pixel centres, and a triangle kernel
     widened where a side shrinks. F.interpolate's antialiased bilinear
     has the same weights, borders included (tests/test_torch_geoenh.py
-    holds it to JAX)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw),
+    holds it to JAX). It sums in fp32 and rounds to x's dtype, as CUDA's
+    bf16 kernel does (the CPU has no bf16 antialiased kernel)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=tuple(out_hw),
                       mode="bilinear", align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 class CustomFPN(nn.Module):

@@ -27,7 +27,19 @@ Per frame:
 
 The render-only heads exist when the module is built with
 `render_heads=True` (the trainer's model); an eval model has none, as a
-JAX model initialised for eval. The conv towers run under the caller's
+JAX model initialised for eval.
+
+`cfg.ablate` holds the JAX package's profiling seams, each of which
+replaces a sub-block by zeros of its output's shape and dtype: "nerf"
+the NeRF alphas, "sample" the voxel sampling (K4), "hoa" the deformable
+attention (the opacity passes through), "render" the whole render
+branch, "splat" the Gaussian render (K5; its zeros are scaled by the
+sums of the colours and opacities, so those heads stay in the graph)
+and "nerfcomp" the NeRF render of the chosen camera. flax creates a
+module's parameters only when it is called, so the module builds
+exactly the submodules that the JAX package's init creates for the same
+seams and mode (`built_heads`), and the weight bridge and the optimizer
+see the same parameter set. The conv towers run under the caller's
 autocast (`towers`); geometry, K2, K3, K4, the masked camera mean, the
 Gaussian projection and the renderer run in fp32. Module layouts are
 NCHW; the BEV output is NCHW [B, C, Y, X], the aux logits and renders
@@ -61,6 +73,33 @@ from .heads import (MLP2, ColorMLP, LearnedBlend, OpacityMLP,
 from .hoa import OpacityVoxelToBEV
 
 
+SEAMS = ("nerf", "render", "sample", "hoa", "splat", "nerfcomp")
+
+
+def built_heads(ablate, render_heads: bool) -> set:
+    """The seam-dependent submodules that the JAX package's init creates
+    for `ablate` (`render_heads`: a training model): the NeRF density
+    head `sigma` unless "nerf"; the full-resolution `image_feat_resize`
+    where the NeRF alphas or the NeRF render call it; the deformable
+    attention unless "hoa"; the NeRF render's factor MLPs where the
+    render branch runs it."""
+    unknown = set(ablate) - set(SEAMS)
+    if unknown:
+        raise ValueError(f"vt.ablate {sorted(unknown)}: seams are {SEAMS}")
+    render = render_heads and "render" not in ablate
+    nerfcomp = render and "nerfcomp" not in ablate
+    out = set()
+    if "nerf" not in ablate:
+        out.add("sigma")
+    if "nerf" not in ablate or nerfcomp:
+        out.add("image_feat_resize")
+    if "hoa" not in ablate:
+        out.add("defor_cross_attention")
+    if nerfcomp:
+        out.add("C_MLP_nerf")
+    return out
+
+
 class OcRFViewTransformer(nn.Module):
     def __init__(self, grid: GridConfig, cfg: ViewTransformerConfig,
                  input_size, render_heads: bool = False):
@@ -86,21 +125,27 @@ class OcRFViewTransformer(nn.Module):
         self.height_b = nn.Parameter(torch.zeros(Zh))
         self.height_bn = BatchNorm2d(Zh, eps=1e-5)
         self.A_MLP = OpacityMLP(c)
-        self.image_feat_resize = ResizeNetwork(cfg.in_channels, c)
-        self.sigma = SigmaMLP(c)
-        self.defor_cross_attention = DeformableAttention2D(
-            dim=Zh, dim_head=8, heads=1, downsample_factor=4,
-            offset_scale=4.0, offset_kernel_size=6)
+        built = built_heads(cfg.ablate, render_heads)
+        if "image_feat_resize" in built:
+            self.image_feat_resize = ResizeNetwork(cfg.in_channels, c)
+        if "sigma" in built:
+            self.sigma = SigmaMLP(c)
+        if "defor_cross_attention" in built:
+            self.defor_cross_attention = DeformableAttention2D(
+                dim=Zh, dim_head=8, heads=1, downsample_factor=4,
+                offset_scale=4.0, offset_kernel_size=6)
         self.OpacityVoxelToBEV = OpacityVoxelToBEV(Zh)
-        self.render_heads = render_heads
-        if render_heads:
+        # the render branch runs (in training, for the key frame)
+        self.render_heads = render_heads and "render" not in cfg.ablate
+        if self.render_heads:
             self.S_MLP = ScaleMLP(c)
             self.R_MLP = RotationMLP(c)
             self.C_MLP = ColorMLP(c + 3)
-            self.C_MLP_nerf = MLP2(c + 3, 4, 3)
-            self.D_MLP_nerf = MLP2(c + 3, 4, 1)
-            self.img_feat_resize1 = MLP2(c + 3, 4, 3)
-            self.img_feat_resize2 = MLP2(c + 3, 4, 1)
+            if "C_MLP_nerf" in built:
+                self.C_MLP_nerf = MLP2(c + 3, 4, 3)
+                self.D_MLP_nerf = MLP2(c + 3, 4, 1)
+                self.img_feat_resize1 = MLP2(c + 3, 4, 3)
+                self.img_feat_resize2 = MLP2(c + 3, 4, 1)
             self.blend_img = LearnedBlend()
             self.blend_depth = LearnedBlend()
             # metric voxel centres, the Gaussian means [Zh*Nq, 3]
@@ -172,7 +217,8 @@ class OcRFViewTransformer(nn.Module):
         opacity_bev_logit [B,Y,X,1], and in training for the key frame
         the renders of `render_branch`."""
         cfg = self.cfg
-        render_on = is_key and self.training
+        ablate = cfg.ablate
+        render_on = is_key and self.training and "render" not in ablate
         if render_on and not self.render_heads:
             raise ValueError("training needs the render heads: build the "
                              "model with render_heads=True")
@@ -197,13 +243,22 @@ class OcRFViewTransformer(nn.Module):
         voxel_feat = F.relu(self.height_bn(vf))
         with towers():
             opacity = self.A_MLP(voxel_feat)[..., 0]         # [B,Zh,Nq]
-            alphas = self.nerf_alphas(x)                     # [B,N,H,W]
-        maps = alphas[..., None]
-        if render_on:
-            imgs_rgb = batch["imgs_wo_norm"].float() / 255.0
-            maps = torch.cat([maps, imgs_rgb], dim=-1)
-        sampled = self.sample_at_voxels(maps, uvd, valid)
-        del maps
+        if "nerf" in ablate:                   # profiling-only seam
+            alphas = x.new_zeros((B, x.shape[1], *cfg.render_image_size),
+                                 dtype=torch.float32)
+        else:
+            with towers():
+                alphas = self.nerf_alphas(x)                 # [B,N,H,W]
+        if "sample" in ablate:                 # profiling-only seam
+            sampled = x.new_zeros((B, Zh, Y * X, 4 if render_on else 1),
+                                  dtype=torch.float32)
+        else:
+            maps = alphas[..., None]
+            if render_on:
+                imgs_rgb = batch["imgs_wo_norm"].float() / 255.0
+                maps = torch.cat([maps, imgs_rgb], dim=-1)
+            sampled = self.sample_at_voxels(maps, uvd, valid)
+            del maps
         alpha_vox = sampled[..., 0].reshape(B, Zh, Y, X)
         opac_vox = opacity.reshape(B, Zh, Y, X)
 
@@ -211,10 +266,13 @@ class OcRFViewTransformer(nn.Module):
         # an output), residual add
         ds_hw = (max(Y // 6, 8), max(X // 6, 8))
         with towers():
-            op_ds = resize_bilinear(opac_vox, ds_hw)
-            al_ds = resize_bilinear(alpha_vox.to(op_ds.dtype), ds_hw)
-            att = self.defor_cross_attention(op_ds, al_ds)
-            opacity_alpha = resize_bilinear(att, (Y, X)) + opac_vox
+            if "hoa" in ablate:                # profiling-only seam
+                opacity_alpha = opac_vox
+            else:
+                op_ds = resize_bilinear(opac_vox, ds_hw)
+                al_ds = resize_bilinear(alpha_vox.to(op_ds.dtype), ds_hw)
+                att = self.defor_cross_attention(op_ds, al_ds)
+                opacity_alpha = resize_bilinear(att, (Y, X)) + opac_vox
             opacity_bev_logit = self.OpacityVoxelToBEV(
                 opacity_alpha.to(cdt), self.pos_enc_hoa(B).to(cdt))
 
@@ -258,22 +316,50 @@ class OcRFViewTransformer(nn.Module):
 
         g_in = voxel_feat.reshape(B, G, -1)
         with towers():
-            scaling = self.S_MLP(g_in)
-            rotation = self.R_MLP(g_in)
             color = self.C_MLP(torch.cat(
                 [g_in, vox_rgb.reshape(B, G, 3).to(g_in.dtype)], -1))
         opac = opacity.reshape(B, G)
+        gt_img = take_cam(imgs_rgb)                            # [B,H,W,3]
+        if "splat" in cfg.ablate:              # profiling-only seam
+            img_g = color.sum().float() * x.new_zeros((B, H, W, 3))
+            dep_g = opac.sum().float() * x.new_zeros((B, H, W))
+        else:
+            img_g, dep_g = self.splat_render(g_in, color, opac, cams,
+                                             take_cam, towers)
+        if "nerfcomp" in cfg.ablate:           # profiling-only seam
+            img_n = x.new_zeros((B, H, W, 3))
+            dep_n = x.new_zeros((B, H, W))
+        else:
+            img_n, dep_n = self.nerf_render(x, alphas, gt_img, take_cam,
+                                            towers)
+        return dict(
+            render_img=self.blend_img(img_g, img_n), render_img_g=img_g,
+            render_img_n=img_n,
+            render_depth=self.blend_depth(dep_g, dep_n),
+            render_depth_g=dep_g, render_depth_n=dep_n,
+            render_gt_img=gt_img,
+            render_gt_depth=take_cam(batch["gt_depth"]))
+
+    def splat_render(self, g_in, color, opac, cams: CameraParams,
+                     take_cam: Callable, towers: Callable):
+        """The voxel Gaussians rendered into each sample's chosen camera
+        (`take_cam`): (img_g [B,H,W,3], dep_g [B,H,W])."""
+        cfg = self.cfg
+        B = g_in.shape[0]
+        H, W = cfg.render_image_size
+        with towers():
+            scaling = self.S_MLP(g_in)
+            rotation = self.R_MLP(g_in)
 
         # the chosen camera's pose in the BDA ego frame, aug folded into K
         rot_c, tran_c, K_c = (take_cam(t) for t in (cams.rots, cams.trans,
                                                      cams.intrins))
         pr_c, pt_c = take_cam(cams.post_rots), take_cam(cams.post_trans)
-        gt_img = take_cam(imgs_rgb)                            # [B,H,W,3]
-        c2e = torch.zeros((B, 4, 4), device=x.device)
+        c2e = torch.zeros((B, 4, 4), device=g_in.device)
         c2e[:, :3, :3] = cams.bda @ rot_c
         c2e[:, :3, 3] = (cams.bda @ tran_c[..., None])[..., 0]
         c2e[:, 3, 3] = 1.0
-        P3 = torch.zeros((B, 3, 3), device=x.device)
+        P3 = torch.zeros((B, 3, 3), device=g_in.device)
         P3[:, :2, :2] = pr_c[:, :2, :2]
         P3[:, :2, 2] = pt_c[:, :2]
         P3[:, 2, 2] = 1.0
@@ -291,8 +377,12 @@ class OcRFViewTransformer(nn.Module):
         else:                       # "xla" or "pallas": tiled, kernel K5
             img_g, dep_g, _ = render_gaussians_tiled(g, color.float(),
                                                      opac.float(), H, W)
+        return img_g, dep_g
 
-        # NeRF render of the chosen camera
+    def nerf_render(self, x, alphas, gt_img, take_cam: Callable,
+                    towers: Callable):
+        """NeRF compositing of the chosen camera's full-resolution
+        feature: (img_n [B,H,W,3], dep_n [B,H,W]) in fp32."""
         with towers():
             full = self.image_feat_resize(take_cam(x))         # [B,c,H,W]
             alpha_c = take_cam(alphas)[:, None].to(full.dtype)
@@ -307,10 +397,4 @@ class OcRFViewTransformer(nn.Module):
                 self.img_feat_resize2.forward_nchw(fc_in)) * dw
             img_n = (alpha_c * radiance).float().permute(0, 2, 3, 1)
             dep_n = (alpha_c * radiance_d)[:, 0].float()
-        return dict(
-            render_img=self.blend_img(img_g, img_n), render_img_g=img_g,
-            render_img_n=img_n,
-            render_depth=self.blend_depth(dep_g, dep_n),
-            render_depth_g=dep_g, render_depth_n=dep_n,
-            render_gt_img=gt_img,
-            render_gt_depth=take_cam(batch["gt_depth"]))
+        return img_n, dep_n

@@ -71,10 +71,10 @@ def busy_us(intervals) -> float:
     return total
 
 
-def device_breakdown(prof, n: int, wall_us: float) -> dict:
+def device_breakdown(prof, n: int, wall_us: float, topn: int = 10) -> dict:
     """The traced window's device time per unit of work (n units): busy
     time (union of kernel intervals), idle share, events, time per
-    kernel group and the ten kernels that take the most."""
+    kernel group and the `topn` kernels that take the most."""
     by_group = defaultdict(float)
     by_kernel = defaultdict(float)
     intervals = []
@@ -86,7 +86,7 @@ def device_breakdown(prof, n: int, wall_us: float) -> dict:
         by_group[group_of(evt.name)] += e - s
         by_kernel[evt.name] += e - s
     busy = busy_us(intervals)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:topn]
     return dict(
         device_busy_ms=busy / n / 1e3,
         device_idle_share=(1.0 - busy / wall_us) if intervals else None,

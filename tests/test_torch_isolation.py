@@ -83,13 +83,19 @@ def test_entry_points_default_to_cuda():
     model = entry.build_detector(cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
     assert not model.training
+    # the measuring tools that run on the card
+    from ocrfdet_tpu_torch.tools import (benchmark_infer, get_flops,
+                                         profile_step, step_variants)
+    for tool in (benchmark_infer, get_flops, profile_step, step_variants):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tool.main(["--tiny"])
 
 
 def test_unported_options_raise():
-    """Spatial sharding and the profiling ablations (`vt.ablate`) are
-    not ported, and a renderer other than
+    """Spatial sharding is not ported, and a renderer other than
     "dense", "xla" and "pallas" is refused; training is ported, but an
-    eval model (no render heads) refuses it."""
+    eval model (no render heads) refuses it. The profiling seams
+    (`vt.ablate`) are ported: each builds, and an unknown one raises."""
     import dataclasses
     from ocrfdet_tpu_torch.config import VGGTTeacherConfig, tiny_config
     from ocrfdet_tpu_torch.data.synthetic import make_batch
@@ -109,11 +115,15 @@ def test_unported_options_raise():
         cfg.parallel, space_axis=2, shard_cameras=True))
     with pytest.raises(NotImplementedError, match="sharding"):
         OcRFDet(sharded)
-    for ablate in (("splat",), ("nerf", "hoa")):
-        cfg = tiny_config(with_ocrf=True)
-        with pytest.raises(NotImplementedError, match="ablate"):
+    from ocrfdet_tpu_torch.models.ocrf.view_transformer_ocrf import SEAMS
+    cfg = tiny_config(with_ocrf=True)
+    for ablate in [(s,) for s in SEAMS] + [SEAMS]:
+        for render_heads in (False, True):
             OcRFDet(dataclasses.replace(cfg, vt=dataclasses.replace(
-                cfg.vt, ablate=ablate)))
+                cfg.vt, ablate=ablate)), render_heads)
+    with pytest.raises(ValueError, match="ablate"):
+        OcRFDet(dataclasses.replace(cfg, vt=dataclasses.replace(
+            cfg.vt, ablate=("nerf", "hao"))))
     with pytest.raises(ValueError, match="renderer"):
         OcRFDet(dataclasses.replace(cfg, vt=dataclasses.replace(
             cfg.vt, renderer="scan")))

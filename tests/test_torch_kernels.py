@@ -48,6 +48,7 @@ from ocrfdet_tpu_torch.ops import bev_pool as bp
 from ocrfdet_tpu_torch.ops import cost_volume as cvm
 from ocrfdet_tpu_torch.ops import ht_pool as htp
 from ocrfdet_tpu_torch.ops import point_sample as ps
+from ocrfdet_tpu_torch.ops import work
 from ocrfdet_tpu_torch.ops.splat import composite as ct
 
 pytestmark = pytest.mark.cuda
@@ -137,8 +138,7 @@ def test_cost_volume_kernel_row_window_walks(dev, C, kind):
     and walks that leave the image and come back: the kernel reuses a
     row only while its pixel is the same, so it matches the plain
     version and no flag flips; its load-counting build loads as many
-    rows as chip_smoke.py's host rule says the design should."""
-    import chip_smoke
+    rows as the design's host rule (ops/work.py) says it should."""
     args = _walk_inputs(dev, C, kind) + (5.0,)
     got = cvm.cost_volume(*args)
     want = cvm.cost_volume_plain(*args)
@@ -147,7 +147,7 @@ def test_cost_volume_kernel_row_window_walks(dev, C, kind):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
     assert torch.equal(got, cvm.cost_volume(*args))
     H, W = args[0].shape[2:4]
-    taps, model = chip_smoke._k1_row_loads(*args[2:7], H, W)
+    taps, model = work.k1_row_loads(*args[2:7], H, W)
     assert 0 < model < taps
     assert cvm.cost_volume_row_loads(*args) == model
 
