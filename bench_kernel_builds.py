@@ -99,11 +99,14 @@ def wrappers() -> dict:
     return mods
 
 
-def load_tree(tree: str) -> dict:
+def load_tree(tree: str, n: int) -> dict:
     """`wrappers()` imported from TREE's `ocrfdet_tpu_torch/` (their
     relative imports bind TREE's own modules, and its kernels build from
     its sources into its `build/`); the checkout's modules are back in
-    sys.modules after."""
+    sys.modules after. A tree that registers its kernels as custom ops
+    registers them under the namespace "ocrfdet_tree{n}", beside the
+    checkout's "ocrfdet::" ops, and its wrappers call its own."""
+    from unittest import mock
     root = Path(tree).resolve()
     if not (root / PKG / "__init__.py").exists():
         raise SystemExit(f"bench_kernel_builds: {root} holds no {PKG}/")
@@ -111,8 +114,14 @@ def load_tree(tree: str) -> dict:
     for k in saved:
         del sys.modules[k]
     sys.path.insert(0, str(root))
+    custom_op = torch.library.custom_op
+
+    def renamed(name, *args, **kwargs):
+        return custom_op(name.replace("ocrfdet::", f"ocrfdet_tree{n}::"),
+                         *args, **kwargs)
     try:
-        return wrappers()
+        with mock.patch.object(torch.library, "custom_op", renamed):
+            return wrappers()
     finally:
         sys.path.remove(str(root))
         for k in _ours(sys.modules):
@@ -423,7 +432,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"[device] {smi}")
     trees = {"checkout": wrappers()}
-    trees.update((tree, load_tree(tree)) for tree in args)
+    trees.update((tree, load_tree(tree, n)) for n, tree in enumerate(args))
     results = time_k2_bwd(dev, trees)
     results.update(time_k3_fwd(dev, trees, same_bits))
     for time in (time_k3, time_k4, time_k4_bwd, time_k5):

@@ -97,7 +97,19 @@ Phases, each printing a line:
      (flagship, eval and train; the kernels' rows from ops/work.py) and
      `profile_step --fwd-only` (its categories must add up to its busy
      time within 1%);
- 15. one JSON line describing every kernel (the nine kernel functions
+ 15. `[export]`: the flagship inference program (`tools/export.py`:
+     forward + decode, K1-K4 as custom-op nodes) exported in fp32 and in
+     the configured bf16, saved under build/ and loaded back; on 4
+     requests the fp32 program gives eager's bits and the bf16 one
+     agrees within phase 5's bound, each launching 2 of each of K1-K4 a
+     request; 20 bf16 requests through it and through eager, A B A B;
+ 16. `[ddp]`: the data axis (`parallel/`) at world size 1 over NCCL:
+     the flagship at batch 2 as a data rank beside the single-device
+     state, 3 steps of the one `train_step` under deterministic
+     algorithms (`deterministic_step`): losses, gradients, parameters
+     and buffers bit for bit every step, the gathered ZeRO state equal;
+     `run_eval` with and without the process group the same;
+ 17. one JSON line describing every kernel (the nine kernel functions
      and K4's backward binning; launches from the training window;
      forwards timed at batch 1 with their batch-2 times under `*_b2`
      and the batch-4 times under `*_b4`), the card's name and power
@@ -2024,6 +2036,343 @@ def check_tools(dev, per_step):
                              f"{busy} ms")
 
 
+def _flat(tree) -> list:
+    return torch.utils._pytree.tree_flatten(tree)[0]
+
+
+def _max_err(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().max()) if a.numel()
+               else 0.0 for a, b in zip(_flat(got), _flat(want)))
+
+
+def check_export(dev, all_kernels, eval_kernels, smi, n_requests=20):
+    """`tools/export.py` on the card: the flagship `ocrfdet_config(
+    batch_size=1)` inference program (forward + decode, no NMS) exported
+    in fp32 and in the configured bf16 towers, saved under build/ and
+    loaded back (`load_program`). On the OcRF slice's requests
+    (make_batch seeds 0-3) the loaded fp32 program must give eager's
+    forward and decode bit for bit, and the bf16 one must agree with
+    eager bf16 within `check_slice`'s bound (heatmap 1e-3 of its scale,
+    depth 1e-5); the loaded program must launch each of K1-K4 twice a
+    request and nothing else. Then `n_requests` requests through the
+    loaded bf16 program and as many eager forward + decode calls,
+    interleaved A B A B, each synchronised: the medians."""
+    from ocrfdet_tpu_torch import entry, kernels
+    from ocrfdet_tpu_torch.bench_train import percentile
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.tools import export
+
+    cfg = ocrfdet_config(batch_size=1)
+    batches = [entry.make_batch(cfg, seed=s, device=dev) for s in range(4)]
+    kernels.BUILD_DIR.mkdir(exist_ok=True)
+    programs = {}
+    for dtype in ("float32", cfg.compute_dtype):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        model = entry.build_detector(c, dev, seed=0)
+        eager = export.InferProgram(model)
+        path = kernels.BUILD_DIR / f"ocrfdet_infer_{dtype}.pt2"
+        t0 = time.perf_counter()
+        ep = export.export_program(model, batches[0])
+        t_export = time.perf_counter() - t0
+        nodes = export.custom_op_nodes(ep)
+        t0 = time.perf_counter()
+        torch.export.save(ep, str(path))
+        t_save = time.perf_counter() - t0
+        del ep
+        t0 = time.perf_counter()
+        program = export.load_program(str(path))
+        t_load = time.perf_counter() - t0
+        want_nodes = {k: cfg.num_frames for k in
+                      ("cost_volume", "bev_pool", "ht_pool", "point_sample")}
+        if nodes != want_nodes:
+            raise AssertionError(f"[export] {dtype}: custom op nodes {nodes}"
+                                 f", expected {want_nodes}")
+        errs, same = [], []
+        for b in batches:
+            with torch.inference_mode():
+                want = eager(b)
+                again = eager(b)
+                for k in all_kernels:
+                    k.launches = 0
+                got = program(b)
+                torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in all_kernels}
+            expect = {k.name: cfg.num_frames if k in eval_kernels else 0
+                      for k in all_kernels}
+            if launches != expect:
+                raise AssertionError(f"[export] {dtype}: the loaded program "
+                                     f"launched {launches}, expected "
+                                     f"{expect}")
+            errs.append(_max_err(got, want))
+            same.append(all(torch.equal(a, b_) for a, b_ in
+                            zip(_flat(got), _flat(want))))
+            eager_same = all(torch.equal(a, b_) for a, b_ in
+                             zip(_flat(again), _flat(want)))
+            if dtype == "float32" and not same[-1]:
+                raise AssertionError(
+                    f"[export] fp32 program vs eager: max abs err "
+                    f"{errs[-1]:.3e} (eager vs eager bitwise: {eager_same})")
+            preds_g, aux_g, _ = got
+            preds_w, aux_w, _ = want
+            heat = float((preds_g[0]["heatmap"].float()
+                          - preds_w[0]["heatmap"].float()).abs().max())
+            scale = float(preds_w[0]["heatmap"].float().abs().max())
+            depth = float((aux_g["depth"].float()
+                           - aux_w["depth"].float()).abs().max())
+            if heat > 1e-3 * max(1.0, scale) or depth > 1e-5:
+                raise AssertionError(f"[export] {dtype}: heatmap {heat:.3e}"
+                                     f" (scale {scale:.3f}), depth "
+                                     f"{depth:.3e} past the slice's bound")
+        log(f"[export] {dtype} flagship program: export {t_export:.1f} s, "
+            f"save {t_save:.1f} s ({path.stat().st_size / 1e6:.1f} MB), load "
+            f"{t_load:.1f} s; custom op nodes {nodes}; on {len(batches)} "
+            f"requests vs eager: bitwise {same}, max abs err "
+            f"{max(errs):.3e}; 2 launches of each of K1-K4 a request; "
+            f"nvidia-smi: {smi}")
+        programs[dtype] = (program, eager)
+    program, eager = programs[cfg.compute_dtype]
+    times = {"program": [], "eager": []}
+    for i in range(n_requests + 2):
+        b = batches[i % len(batches)]
+        for name, fn in (("program", program), ("eager", eager)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.inference_mode():
+                fn(b)
+            torch.cuda.synchronize()
+            if i >= 2:                       # two warm-up rounds
+                times[name].append(time.perf_counter() - t)
+    med = {k: percentile(v, 50) * 1e3 for k, v in times.items()}
+    log(f"[export] {n_requests} {cfg.compute_dtype} requests (forward + "
+        f"decode, synchronised) through the loaded program and eager, "
+        f"interleaved: median ms program {med['program']:.3f}, eager "
+        f"{med['eager']:.3f} (p90 {percentile(times['program'], 90) * 1e3:.3f}"
+        f" / {percentile(times['eager'], 90) * 1e3:.3f}); nvidia-smi: {smi}")
+    del programs, program, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _grid_sample_gathered(img, grid, align_corners):
+    """F.grid_sample's bilinear, zero padding, as four gathers: its
+    backward is a deterministic scatter-add."""
+    B, C, H, W = img.shape
+    h, w = grid.shape[1:3]
+    gx, gy = grid[..., 0].float(), grid[..., 1].float()
+    if align_corners:
+        ix, iy = (gx + 1) / 2 * (W - 1), (gy + 1) / 2 * (H - 1)
+    else:
+        ix, iy = ((gx + 1) * W - 1) / 2, ((gy + 1) * H - 1) / 2
+    x0, y0 = ix.floor(), iy.floor()
+    fx, fy = ix - x0, iy - y0
+    flat = img.reshape(B, C, H * W)
+    out = 0
+    for dy, wy in ((0, 1 - fy), (1, fy)):
+        for dx, wx in ((0, 1 - fx), (1, fx)):
+            xx, yy = x0 + dx, y0 + dy
+            inside = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
+            idx = (yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)).long()
+            v = torch.gather(flat, 2, idx.reshape(B, 1, h * w)
+                             .expand(B, C, h * w)).reshape(B, C, h, w)
+            out = out + v * (wx * wy * inside)[:, None]
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_step():
+    """`torch.use_deterministic_algorithms(True)`: every op of the
+    training step that has a deterministic form runs it, and one that has
+    none raises. Of the flagship step's ops only F.grid_sample's backward
+    (the deformable attention) has none (torch 2.11 on the H100); its
+    bilinear form is replaced by four gathers, whose backward is a
+    deterministic scatter-add. The kernels are untouched."""
+    import torch.nn.functional as F
+    grid_sample = F.grid_sample
+
+    def det_grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=None):
+        if mode != "bilinear" or padding_mode != "zeros":
+            return grid_sample(img, grid, mode=mode,
+                               padding_mode=padding_mode,
+                               align_corners=align_corners)
+        return _grid_sample_gathered(img, grid, bool(align_corners))
+
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    F.grid_sample = det_grid_sample
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        F.grid_sample = grid_sample
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+
+
+def check_ddp(dev, all_kernels, per_step, smi, n_steps=3):
+    """The data axis (`parallel/`) at world size 1 over NCCL: a process
+    group of this one process; the flagship at batch 2 from the same seed
+    as a data rank (D: `parallel/step.py::DataParallelState`, whose
+    collectives are NCCL all-reduces and, past one rank, the ZeRO
+    all-gather) and on one device (S: `TrainState`, no collectives), each
+    through the one `train_step`, step by step, `n_steps` steps, under
+    `deterministic_step()`, so that two runs of the step give the same
+    bits. Every step D launches `per_step`, and D, updating from its own
+    averaged gradients, must give S's losses, S's gradients as the
+    optimizer receives them, and after the update every parameter and
+    buffer of S, bit for bit; after the last step D's gathered state
+    (`DataParallelState.state_dict`) must equal S's whole state. Then
+    `run_eval` of D's EMA weights over a fake nuScenes of 2 samples with
+    the process group and without it must give the same metrics. The
+    process group is released at the end."""
+    import tempfile
+
+    from ocrfdet_tpu_torch import entry, kernels
+    from ocrfdet_tpu_torch.bench_train import percentile
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.data.dataset import Loader, NuScenesDataset
+    from ocrfdet_tpu_torch.data.fake_nuscenes import build_fake_nuscenes
+    from ocrfdet_tpu_torch.parallel import mesh as pmesh
+    from ocrfdet_tpu_torch.parallel import step as pstep
+    from ocrfdet_tpu_torch.train import evaluate
+
+    os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    cfg = ocrfdet_config(batch_size=2)
+    t0 = time.perf_counter()
+    mesh = pmesh.init_data_mesh(cfg.batch_size)
+    try:
+        S = entry.build_trainer(cfg, dev, seed=0)
+        D = pstep.build_trainer(cfg, mesh, seed=0)
+        batches = [entry.make_batch(cfg, seed=s, batch_size=2, device=dev,
+                                    with_targets=True) for s in range(2)]
+        log(f"[ddp] NCCL process group of world size {mesh.world} (data "
+            f"{mesh.data}) on {mesh.device}; 2 flagship trainers in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def recording(state):
+            """Record the gradients `state`'s optimizer is given."""
+            got = {}
+            update = state.optimizer.update
+
+            def record(grads, count):
+                got["grads"] = [g.detach().clone() for g in grads]
+                return update(grads, count)
+            state.optimizer.update = record
+            return got
+        s_rec, d_rec = recording(S), recording(D)
+        names = S.optimizer.names["render"] + S.optimizer.names["other"]
+        # the stand-in computes F.grid_sample's function
+        g = torch.Generator(device=dev).manual_seed(5)
+        img = torch.rand(2, 64, 16, 44, generator=g, device=dev)
+        grid = torch.rand(2, 16, 44, 2, generator=g, device=dev) * 2.4 - 1.2
+        err = float((_grid_sample_gathered(img, grid, False)
+                     - torch.nn.functional.grid_sample(
+                         img, grid, align_corners=False)).abs().max())
+        if err > 1e-5:
+            raise AssertionError(f"[ddp] the gathered grid sample is "
+                                 f"{err:.3e} from F.grid_sample")
+        times = {"S": [], "D": []}
+        with deterministic_step():
+            for i in range(n_steps):
+                b = batches[i % 2]
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                m_s = entry.train_step(S, b)
+                torch.cuda.synchronize()
+                times["S"].append(time.perf_counter() - t)
+                for k in all_kernels:
+                    k.launches = 0
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                m_d = entry.train_step(D, b)
+                torch.cuda.synchronize()
+                times["D"].append(time.perf_counter() - t)
+                got = {k.name: k.launches for k in all_kernels}
+                want = {k.name: per_step.get(k.name, 0) for k in all_kernels}
+                if got != want:
+                    raise AssertionError(f"[ddp] step {i}: launches {got}, "
+                                         f"expected {want}")
+                if m_d != m_s:
+                    raise AssertionError(
+                        f"[ddp] step {i}: losses differ: " + ", ".join(
+                            f"{k} {m_d[k]!r} vs {m_s[k]!r}" for k in m_s
+                            if m_d.get(k) != m_s[k]))
+                diff = [n for n, x, y in zip(names, d_rec["grads"],
+                                             s_rec["grads"])
+                        if not torch.equal(x, y)]
+                if diff:
+                    raise AssertionError(
+                        f"[ddp] step {i}: the gradients of {len(diff)} of "
+                        f"{len(names)} tensors differ: {diff[:6]}")
+                sd_s, sd_d = S.model.state_dict(), D.model.state_dict()
+                diff = [k for k in sd_s if not torch.equal(sd_s[k], sd_d[k])]
+                if diff:
+                    raise AssertionError(f"[ddp] step {i}: {len(diff)} "
+                                         f"tensors differ after the update: "
+                                         f"{diff[:4]}")
+        diff = _state_equal(S.state_dict(), D.state_dict())
+        if diff:
+            raise AssertionError(f"[ddp] the gathered state differs in "
+                                 f"{len(diff)} keys: {diff[:8]}")
+        med = {k: percentile(v[1:], 50) * 1e3 for k, v in times.items()}
+        log(f"[ddp] {n_steps} flagship steps at batch 2 under "
+            f"deterministic_step (its grid sample {err:.1e} from "
+            f"F.grid_sample's), D from its own averaged gradients: losses "
+            f"(loss_total {m_s['loss_total']!r} at the last), the gradients "
+            f"of all {len(names)} tensors, every parameter and buffer after "
+            f"each update bit for bit, and the gathered ZeRO state (moments,"
+            f" EMAs, generator) equal to S's; launches per_step a step; "
+            f"step ms median after the first D {med['D']:.3f} (steps "
+            + ", ".join(f"{t * 1e3:.1f}" for t in times["D"])
+            + f"), S {med['S']:.3f} (steps "
+            + ", ".join(f"{t * 1e3:.1f}" for t in times["S"])
+            + f"); nvidia-smi: {smi}")
+        del S, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg1 = ocrfdet_config(batch_size=1)
+        model = evaluate.ema_detector(cfg1, D, dev)
+        del D
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR,
+                                         prefix="ddp_eval_") as root:
+            pkl = build_fake_nuscenes(f"{root}/val", cfg1, n_samples=2,
+                                      img_hw=(900, 1600), seed=2)
+            held_out = NuScenesDataset(cfg1, pkl, is_train=False, cbgs=False)
+            results = {}
+            for name, m in (("group", mesh), ("alone", None)):
+                loader = Loader(held_out, 1, shuffle=False, drop_last=False,
+                                num_workers=2)
+                results[name] = evaluate.run_eval(cfg1, model, loader,
+                                                  mesh=m)
+        as_text = {k: json.dumps(v, sort_keys=True, default=float)
+                   for k, v in results.items()}
+        if as_text["group"] != as_text["alone"]:
+            raise AssertionError(f"[ddp] run_eval with the process group "
+                                 f"{results['group']} != without "
+                                 f"{results['alone']}")
+        log(f"[ddp] run_eval of D's EMA over 2 fake nuScenes samples with "
+            f"the process group = without it: " + json.dumps(
+                {k: v for k, v in results["group"].items()
+                 if k != "per_class_ap"}))
+    finally:
+        pmesh.release()
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[ddp] process group released")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2118,6 +2467,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     check_tools(dev, per_step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_export(dev, checked, eval_kernels, smi)
+    check_ddp(dev, checked, per_step, smi)
 
     rows = []
     for k in kernel_list:

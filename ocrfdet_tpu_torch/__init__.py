@@ -15,4 +15,9 @@ Ported so far: the eval forward of the flagship
 step (see `entry.py`); the host data layer (`data/`), the trainer and
 the eval runner (`train/trainer.py`, `train/evaluate.py`) and the tools
 (`python -m ocrfdet_tpu_torch.tools.{train,eval,overfit,generalize}`).
+
+Importing the package registers the kernels' custom ops
+(`torch.ops.ocrfdet.*`, see `ops/`), so that a program saved by
+`tools/export.py` loads in a fresh process.
 """
+from . import ops  # noqa: F401

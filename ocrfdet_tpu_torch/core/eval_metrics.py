@@ -152,6 +152,20 @@ class DetectionEvaluator:
         self._seen_tokens: set = set()
         self._token_sids: Dict[str, int] = {}
 
+    def __getstate__(self):
+        """Plain dicts for pickling (the gather of a multi-process eval):
+        the default factories are lambdas."""
+        state = dict(self.__dict__)
+        state["preds"] = dict(self.preds)
+        state["gts"] = {c: dict(v) for c, v in self.gts.items()}
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.preds = defaultdict(list, state["preds"])
+        self.gts = defaultdict(lambda: defaultdict(list), {
+            c: defaultdict(list, v) for c, v in state["gts"].items()})
+
     def _in_range(self, box, name) -> bool:
         if not self.apply_class_range:
             return True

@@ -14,8 +14,11 @@ library of its own.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.launch` raises if that is not 0 and
-otherwise adds one to the kernel's `launches` count. Nothing here runs
+otherwise adds one to the kernel's `launches` count. Nothing is built
 when the module is imported.
+
+The wrappers in `ops/` register each kernel's entry points as
+`torch.library` custom ops under `OPS_NAMESPACE`, "ocrfdet".
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import tempfile
 from pathlib import Path
 from typing import Iterable, Sequence
 
+OPS_NAMESPACE = "ocrfdet"
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

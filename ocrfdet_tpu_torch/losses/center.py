@@ -28,18 +28,19 @@ def gaussian_focal_loss(pred, target, alpha: float = 2.0,
 
 
 def center_head_loss(preds: List[Dict[str, torch.Tensor]], targets,
-                     code_weights, loss_bbox_weight: float = 0.25
-                     ) -> Dict[str, torch.Tensor]:
+                     code_weights, loss_bbox_weight: float = 0.25,
+                     mean_fn=lambda x: x) -> Dict[str, torch.Tensor]:
     """preds: per-task dicts of channel-last maps [B,H,W,ch]; targets:
     per-task lists heatmaps [B,H,W,K], anno_boxes [B,max_objs,10], inds
-    [B,max_objs], masks [B,max_objs]."""
+    [B,max_objs], masks [B,max_objs]. `mean_fn` is the cross-replica
+    mean of the normalising counts (identity on one device)."""
     losses = {}
     names = ["xy", "z", "whl", "yaw", "vel"]
     splits = [0, 2, 3, 6, 8, 10]
     for t, pred in enumerate(preds):
         hm_t = targets["heatmaps"][t]
         hm_p = clip_sigmoid(pred["heatmap"].float())
-        avg = torch.clamp((hm_t == 1.0).float().sum(), min=1.0)
+        avg = torch.clamp(mean_fn((hm_t == 1.0).float().sum()), min=1.0)
         losses[f"task{t}.loss_heatmap"] = (
             gaussian_focal_loss(hm_p, hm_t).sum() / avg)
 
@@ -57,7 +58,7 @@ def center_head_loss(preds: List[Dict[str, torch.Tensor]], targets,
         weights = mask * finite.float() * cw
         target_box = torch.where(finite, target_box,
                                  torch.zeros_like(target_box))
-        num = torch.clamp(mask.sum(), min=1e-4)
+        num = torch.clamp(mean_fn(mask.sum()), min=1e-4)
         l1 = (gathered - target_box).abs() * weights
         for s in range(5):
             lo, hi = splits[s], splits[s + 1]

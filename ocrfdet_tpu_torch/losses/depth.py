@@ -65,16 +65,19 @@ def build_depth_semantic_labels(gt_depth, gt_semantic, depth_cfg,
 
 def depth_semantic_loss(depth_pred, semantic_pred, depth_onehot,
                         semantic_onehot, valid, loss_depth_weight: float,
-                        loss_semantic_weight: float):
+                        loss_semantic_weight: float, mean_fn=lambda x: x):
     """depth_pred [BN,h,w,D] and semantic_pred [BN,h,w,2] (softmaxed).
-    Returns (weighted depth loss, weighted semantic loss)."""
+    Returns (weighted depth loss, weighted semantic loss). `mean_fn` is
+    the cross-replica mean of the two normalising counts (identity on
+    one device)."""
     eps = 1e-7
     sem_w = torch.where(semantic_onehot[..., 1] > 0, 0.9, 0.1)
     w = sem_w * valid.float()
     bce = -(depth_onehot * torch.log(torch.clamp(depth_pred, eps, 1.0))
             + (1.0 - depth_onehot)
             * torch.log(torch.clamp(1.0 - depth_pred, eps, 1.0)))
-    depth_loss = (bce * w[..., None]).sum() / torch.clamp(w.sum(), min=0.1)
+    depth_loss = (bce * w[..., None]).sum() / torch.clamp(
+        mean_fn(w.sum()), min=0.1)
 
     p, t = semantic_pred, semantic_onehot
     alpha, gamma = 0.25, 2.0
@@ -83,6 +86,6 @@ def depth_semantic_loss(depth_pred, semantic_pred, depth_onehot,
     sem_bce = -(t * torch.log(torch.clamp(p, eps, 1.0))
                 + (1.0 - t) * torch.log(torch.clamp(1.0 - p, eps, 1.0)))
     sem_loss = (sem_bce * focal_w * valid.float()[..., None]).sum()
-    n_valid = torch.clamp(valid.float().sum(), min=1.0)
+    n_valid = torch.clamp(mean_fn(valid.float().sum()), min=1.0)
     return (loss_depth_weight * depth_loss,
             loss_semantic_weight * sem_loss / n_valid)

@@ -56,7 +56,8 @@ def check_supported(cfg: OcRFDetConfig) -> None:
     if p.space_axis > 1 and (p.shard_cameras or p.shard_vt or p.shard_bev
                              or p.shard_render):
         raise NotImplementedError(
-            "spatial sharding (parallel.space_axis > 1) is not ported yet")
+            "spatial sharding (parallel.space_axis > 1, the space axis) is "
+            "ROADMAP item 13b")
     if cfg.vt.renderer not in ("dense", "xla", "pallas"):
         raise ValueError(f"vt.renderer {cfg.vt.renderer!r}: 'dense', 'xla' "
                          f"or 'pallas' expected")

@@ -6,25 +6,28 @@ ocrfdet_tpu/ops/bev_pool.py and ops/bev_pool_pallas.py).
 
 `bev_pool_points` is the wrapper of kernel K2 (`csrc/bev_pool.cu`, the
 counterpart of the Pallas `bev_pool_points` and of the reference's CUDA
-bev_pool_v2): for CUDA tensors it sorts the points into cell intervals
+bev_pool_v2). It calls the custom op `ocrfdet::bev_pool`. For CUDA
+tensors its implementation sorts the points into cell intervals
 (`cell_intervals`, PyTorch bookkeeping as bev_pool_v2's prepare step)
 and launches the forward kernel, which pools each interval without
-atomics, and its backward (dfeat and dw) launches the backward kernel
-(`BWD_KERNEL`), which walks each pixel's points without atomics, over
-the points sorted by pixel (`cell_intervals(pix_id, npix)`). For CPU
-tensors it runs `bev_pool_points_plain` (gather + `index_add_`), whose
-autograd is the backward's plain version.
+atomics; its registered backward, the op `ocrfdet::bev_pool_backward`,
+launches the backward kernel (`BWD_KERNEL`), which walks each pixel's
+points without atomics, over the points sorted by pixel
+(`cell_intervals(pix_id, npix)`). For CPU tensors the forward is
+`bev_pool_points_plain` (gather + `index_add`) and the backward the vjp
+of it.
 
 `lss_pool` is K2 on the model's path: it builds the LSS splat's streams
-itself (`lss_points`) and pools them as `bev_pool_points` does, but its
-backward kernel walks each pixel's D points in closed form, since the
-function that made the streams knows their layout; `lss_pool_plain` is
-its plain version.
+itself (`lss_points`) and pools them with the same op, passing their
+layout, so that its backward kernel walks each pixel's D points in
+closed form, since the function that made the streams knows their
+layout; `lss_pool_plain` is its plain version.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -67,6 +70,24 @@ def bev_pool_points_plain(w, pix_id, cell_id, feat, cells: int):
     out = out.index_add(0, (cell_id.long() + offs).reshape(-1),
                         rows.reshape(B * P, C))
     return out.reshape(B, cells + 1, C)[:, :cells]
+
+
+def bev_pool_backward_plain(w, pix_id, cell_id, feat, g, cells: int):
+    """Plain version of K2's backward: the vjp of `bev_pool_points_plain`
+    for the cotangent g [B,cells,C], (dw [B,P], dfeat [B,npix,C]) f32,
+    written out with the operations PyTorch's autograd runs for it (the
+    same bits)."""
+    B, P = w.shape
+    C = feat.shape[-1]
+    idx = pix_id.long()[..., None].expand(B, P, C)
+    g_full = g.new_zeros((B, cells + 1, C))
+    g_full[:, :cells] = g
+    offs = torch.arange(B, device=feat.device)[:, None] * (cells + 1)
+    g_rows = g_full.reshape(B * (cells + 1), C).index_select(
+        0, (cell_id.long() + offs).reshape(-1)).reshape(B, P, C)
+    dw = (g_rows * torch.gather(feat, 1, idx)).sum(-1)
+    dfeat = torch.zeros_like(feat).scatter_add_(1, idx, g_rows * w[..., None])
+    return dw, dfeat
 
 
 def cell_intervals(cell_id, cells: int):
@@ -114,24 +135,6 @@ def bev_pool_forward(w, pix_id, cell_id, feat, cells: int, perm, offsets):
     return out
 
 
-class _BevPoolPointsCUDA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, w, pix_id, cell_id, feat, cells, layout):
-        out = bev_pool_forward(w, pix_id, cell_id, feat, cells,
-                               *cell_intervals(cell_id, cells))
-        ctx.save_for_backward(w, pix_id, cell_id, feat)
-        ctx.cells, ctx.layout = cells, layout
-        return out
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        w, pix_id, cell_id, feat = ctx.saved_tensors
-        dw, dfeat = bev_pool_points_backward(w, pix_id, cell_id, feat,
-                                             grad_out, ctx.cells,
-                                             layout=ctx.layout)
-        return dw, None, None, dfeat, None, None
-
-
 def bev_pool_backward(w, cell_id, feat, g, cells: int, layout=None,
                       intervals=None):
     """K2's backward kernel on CUDA tensors (g [B,cells,C] f32,
@@ -154,26 +157,9 @@ def bev_pool_backward(w, cell_id, feat, g, cells: int, layout=None,
     return dw, dfeat
 
 
-def bev_pool_points_backward(w, pix_id, cell_id, feat, grad_out,
-                             cells: int, layout=None):
-    """K2's backward on CUDA tensors (the forward's inputs and the
-    cotangent g [B,cells,C]): (dw [B,P], dfeat [B,npix,C]) f32. Without
-    `layout` the points are first sorted by pixel. `layout` = (N, D, HW)
-    is only for streams that `lss_points` built (`lss_pool` passes it):
-    the kernel then names each pixel's points in closed form and never
-    reads pix_id, so nothing holds the streams to the layout."""
-    B, npix, C = feat.shape
-    g = grad_out.float().contiguous()
-    if tuple(g.shape) != (B, cells, C):
-        raise ValueError(f"bev_pool backward: g {tuple(g.shape)} != "
-                         f"{(B, cells, C)}")
-    intervals = cell_intervals(pix_id, npix) if layout is None else None
-    return bev_pool_backward(w, cell_id, feat, g, cells, layout=layout,
-                             intervals=intervals)
-
-
-def _check_streams(w, pix_id, cell_id, feat, cells: int, fn: str):
+def _check_streams(w, pix_id, cell_id, feat, cells: int):
     """Raise unless K2's kernels can take these CUDA streams."""
+    fn = "bev_pool"
     B, P = w.shape
     if B * P >= 2 ** 31 or B * (cells + 1) >= 2 ** 31:
         raise ValueError(f"{fn}: {B} x {P} points or {cells} cells exceed "
@@ -198,15 +184,90 @@ def _check_streams(w, pix_id, cell_id, feat, cells: int, fn: str):
             raise ValueError(f"{fn}: {name} {tuple(t.shape)} != {(B, P)}")
 
 
+# ------------------------------------------------ the custom ops of K2
+@torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::bev_pool",
+                         mutates_args=(), device_types="cpu")
+def _bev_pool_op(w: torch.Tensor, pix_id: torch.Tensor,
+                 cell_id: torch.Tensor, feat: torch.Tensor, cells: int,
+                 layout: Optional[List[int]]) -> torch.Tensor:
+    return bev_pool_points_plain(w, pix_id, cell_id, feat,
+                                 cells).contiguous()
+
+
+@_bev_pool_op.register_kernel("cuda")
+def _(w, pix_id, cell_id, feat, cells, layout):
+    _check_streams(w, pix_id, cell_id, feat, cells)
+    return bev_pool_forward(w, pix_id, cell_id, feat, cells,
+                            *cell_intervals(cell_id, cells))
+
+
+@_bev_pool_op.register_fake
+def _(w, pix_id, cell_id, feat, cells, layout):
+    return feat.new_empty((w.shape[0], cells, feat.shape[-1]))
+
+
+@torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::bev_pool_backward",
+                         mutates_args=(), device_types="cpu")
+def _bev_pool_backward_op(w: torch.Tensor, pix_id: torch.Tensor,
+                          cell_id: torch.Tensor, feat: torch.Tensor,
+                          g: torch.Tensor, cells: int,
+                          layout: Optional[List[int]]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return bev_pool_backward_plain(w, pix_id, cell_id, feat, g.float(),
+                                   cells)
+
+
+@_bev_pool_backward_op.register_kernel("cuda")
+def _(w, pix_id, cell_id, feat, g, cells, layout):
+    B, npix, C = feat.shape
+    g = g.float().contiguous()
+    if tuple(g.shape) != (B, cells, C):
+        raise ValueError(f"bev_pool backward: g {tuple(g.shape)} != "
+                         f"{(B, cells, C)}")
+    intervals = cell_intervals(pix_id, npix) if layout is None else None
+    return bev_pool_backward(w, cell_id, feat, g, cells, layout=layout,
+                             intervals=intervals)
+
+
+@_bev_pool_backward_op.register_fake
+def _(w, pix_id, cell_id, feat, g, cells, layout):
+    return torch.empty_like(w), torch.empty_like(feat)
+
+
+def _bev_pool_setup(ctx, inputs, output):
+    w, pix_id, cell_id, feat, cells, layout = inputs
+    ctx.save_for_backward(w, pix_id, cell_id, feat)
+    ctx.cells, ctx.layout = cells, layout
+
+
+def _bev_pool_grad(ctx, grad_out):
+    dw, dfeat = bev_pool_points_backward(*ctx.saved_tensors, grad_out,
+                                         ctx.cells, layout=ctx.layout)
+    return dw, None, None, dfeat, None, None
+
+
+_bev_pool_op.register_autograd(_bev_pool_grad, setup_context=_bev_pool_setup)
+
+
+def bev_pool_points_backward(w, pix_id, cell_id, feat, grad_out,
+                             cells: int, layout=None):
+    """K2's backward (`ocrfdet::bev_pool_backward`; the forward's inputs
+    and the cotangent g [B,cells,C]): (dw [B,P], dfeat [B,npix,C]) f32.
+    On CUDA tensors, without `layout` the points are first sorted by
+    pixel. `layout` = (N, D, HW) is only for streams that `lss_points`
+    built (`lss_pool` passes it): the kernel then names each pixel's
+    points in closed form and never reads pix_id, so nothing holds the
+    streams to the layout."""
+    return _bev_pool_backward_op(
+        w, pix_id, cell_id, feat, grad_out, cells,
+        None if layout is None else list(layout))
+
+
 def bev_pool_points(w, pix_id, cell_id, feat, cells: int):
-    """K2: w [B,P] f32; pix_id/cell_id [B,P] int32 (invalid cell id =
-    `cells`); feat [B,npix,C] f32. Returns [B, cells, C] f32."""
-    if w.device.type == "cpu":
-        return bev_pool_points_plain(w, pix_id, cell_id, feat, cells)
-    if w.device.type != "cuda":
-        raise ValueError(f"bev_pool_points: unsupported device {w.device}")
-    _check_streams(w, pix_id, cell_id, feat, cells, "bev_pool_points")
-    return _BevPoolPointsCUDA.apply(w, pix_id, cell_id, feat, cells, None)
+    """K2 (`ocrfdet::bev_pool`): w [B,P] f32; pix_id/cell_id [B,P] int32
+    (invalid cell id = `cells`); feat [B,npix,C] f32. Returns
+    [B, cells, C] f32."""
+    return _bev_pool_op(w, pix_id, cell_id, feat, cells, None)
 
 
 def lss_points(depth, feat, vox_idx, valid, bev_size):
@@ -235,14 +296,9 @@ def lss_pool(depth, feat, vox_idx, valid, bev_size):
     `bev_pool_lss`): [B, cells, C] f32. Its backward kernel walks each
     pixel's D points in closed form (layout (N, D, fH * fW)), which holds
     because this function built the streams."""
-    streams = lss_points(depth, feat, vox_idx, valid, bev_size)
-    if depth.device.type == "cpu":
-        return bev_pool_points_plain(*streams)
-    if depth.device.type != "cuda":
-        raise ValueError(f"lss_pool: unsupported device {depth.device}")
-    _check_streams(*streams, "lss_pool")
     B, N, D, fH, fW = depth.shape
-    return _BevPoolPointsCUDA.apply(*streams, (N, D, fH * fW))
+    return _bev_pool_op(
+        *lss_points(depth, feat, vox_idx, valid, bev_size), [N, D, fH * fW])
 
 
 def bev_pool_lss(depth, feat, vox_idx, valid, bev_size):

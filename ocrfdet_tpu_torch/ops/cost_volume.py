@@ -12,9 +12,11 @@ depth,
 
 with per-pixel coefficient maps computed once (`homography_coeffs`).
 
-`cost_volume` is the wrapper of kernel K1 (`csrc/cost_volume.cu`): for
-CUDA tensors it launches the kernel, for CPU tensors it runs
-`cost_volume_plain`. Both compute the EXACT bilinear warp (the TPU
+`cost_volume` is the wrapper of kernel K1 (`csrc/cost_volume.cu`): it
+calls the custom op `ocrfdet::cost_volume`, whose CUDA implementation
+checks the inputs and launches the kernel and whose CPU implementation
+is `cost_volume_plain`; its fake implementation gives the output's
+shape (for `torch.export`). Both compute the EXACT bilinear warp (the TPU
 kernel's window clamp is an MXU artefact that the port does not carry),
 round prev to bf16 as both JAX paths do, and weight and accumulate in
 fp32. The volume carries no gradient. `cost_volume_row_loads` runs the
@@ -130,14 +132,31 @@ def cost_volume_plain(curr, prev, depths, az, bz, a2, b2, bias: float):
     return out.reshape(B, N, D, H, W)
 
 
-def cost_volume(curr, prev, depths, az, bz, a2, b2, bias: float):
-    """Raw plane-sweep cost [B,N,D,H,W] f32: kernel K1 for CUDA
-    tensors, `cost_volume_plain` for CPU tensors (same contract)."""
-    if curr.device.type == "cpu":
-        return cost_volume_plain(curr, prev, depths, az, bz, a2, b2, bias)
-    if curr.device.type != "cuda":
-        raise ValueError(f"cost_volume: unsupported device {curr.device}")
+@torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::cost_volume",
+                         mutates_args=(), device_types="cpu")
+def _cost_volume_op(curr: torch.Tensor, prev: torch.Tensor,
+                    depths: torch.Tensor, az: torch.Tensor, bz: torch.Tensor,
+                    a2: torch.Tensor, b2: torch.Tensor,
+                    bias: float) -> torch.Tensor:
+    return cost_volume_plain(curr, prev, depths, az, bz, a2, b2, bias)
+
+
+@_cost_volume_op.register_kernel("cuda")
+def _(curr, prev, depths, az, bz, a2, b2, bias):
     return _launch(KERNEL, curr, prev, depths, az, bz, a2, b2, bias)
+
+
+@_cost_volume_op.register_fake
+def _(curr, prev, depths, az, bz, a2, b2, bias):
+    B, N, H, W, _ = curr.shape
+    return curr.new_empty((B, N, depths.shape[0], H, W),
+                          dtype=torch.float32)
+
+
+def cost_volume(curr, prev, depths, az, bz, a2, b2, bias: float):
+    """Raw plane-sweep cost [B,N,D,H,W] f32 (`ocrfdet::cost_volume`):
+    kernel K1 for CUDA tensors, `cost_volume_plain` for CPU tensors."""
+    return _cost_volume_op(curr, prev, depths, az, bz, a2, b2, float(bias))
 
 
 def cost_volume_row_loads(curr, prev, depths, az, bz, a2, b2,

@@ -9,19 +9,23 @@ clamp), and
 
 with wv = valid as fp32. `ht_pool` is the wrapper of kernel K3
 (`csrc/ht_pool.cu`, the counterpart of the Pallas `_ht_pool_mm`
-forward): for CUDA tensors it launches the kernel, for CPU tensors it
-runs `ht_pool_points_plain`, the per-camera gather of the JAX
-`ht_pool_ref`. Both compute in fp32 from the same index streams. On
-CUDA the backward (ddep, dctx) orders the valid points by row, one row
-per (b, camera, pixel) (`ht_pool_order`, `ORDER_KERNEL`; its plain
-version is `ht_pool_order_plain`), then launches K3's backward kernel
-(`BWD_KERNEL`), one warp a row, which writes every value of ddep and
-dctx without atomics; on the CPU the backward is the plain version's
-autograd. The index streams and wv get no gradient.
+forward): it calls the custom op `ocrfdet::ht_pool`, whose CUDA
+implementation launches the kernel and whose CPU implementation is
+`ht_pool_points_plain`, the per-camera gather of the JAX `ht_pool_ref`.
+Both compute in fp32 from the same index streams. The registered
+backward is the op `ocrfdet::ht_pool_backward` (ddep, dctx): on CUDA it
+orders the valid points by row, one row per (b, camera, pixel)
+(`ht_pool_order`, `ORDER_KERNEL`, inside the op; its plain version is
+`ht_pool_order_plain`), then launches K3's
+backward kernel (`BWD_KERNEL`), one warp a row, which writes every value
+of ddep and dctx without atomics; on the CPU it is
+`ht_pool_backward_plain`, the vjp of the plain version. The index
+streams and wv get no gradient.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -80,23 +84,31 @@ def ht_pool_points_plain(dep, ctx, pix, di, wv):
     return acc
 
 
-class _HtPoolCUDA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx_, dep, ctx, pix, di, wv):
-        B, N, HW, D = dep.shape
-        C = ctx.shape[-1]
-        Zh, Nq = pix.shape[2], pix.shape[3]
-        out = torch.empty((B, Nq, C), dtype=torch.float32, device=dep.device)
-        KERNEL.launch(kernels.ptr(dep), kernels.ptr(ctx), kernels.ptr(pix),
-                      kernels.ptr(di), kernels.ptr(wv), kernels.ptr(out),
-                      B, N, HW, D, C, Zh, Nq, kernels.stream_of(dep))
-        ctx_.save_for_backward(dep, ctx, pix, di, wv)
-        return out
-
-    @staticmethod
-    def backward(ctx_, grad_out):
-        ddep, dctx = ht_pool_points_backward(*ctx_.saved_tensors, grad_out)
-        return ddep, dctx, None, None, None
+def ht_pool_backward_plain(dep, ctx, pix, di, wv, dout):
+    """Plain version of K3's backward: the vjp of `ht_pool_points_plain`
+    for the cotangent dout [B,Nq,C], (ddep [B,N,HW,D], dctx [B,N,HW,C])
+    f32, written out with the operations PyTorch's autograd runs for it
+    (the same bits)."""
+    B, N, HW, D = dep.shape
+    C = ctx.shape[-1]
+    Zh, Nq = pix.shape[2], pix.shape[3]
+    g = dout[:, None].expand(B, Zh, Nq, C).reshape(B, Zh * Nq, C)
+    ddep = torch.zeros_like(dep)
+    dctx = torch.zeros_like(ctx)
+    for n in range(N):
+        p = pix[:, n].reshape(B, Zh * Nq).long()
+        dflat = p * D + di[:, n].reshape(B, Zh * Nq).long()
+        wgt = torch.gather(dep[:, n].reshape(B, HW * D), 1, dflat)
+        idx = p[..., None].expand(-1, -1, C)
+        feat = torch.gather(ctx[:, n], 1, idx)
+        w_n = wv[:, n].reshape(B, Zh * Nq)
+        g_wgt = (g * feat).sum(-1) * w_n
+        dctx[:, n] = torch.zeros_like(ctx[:, n]).scatter_add_(
+            1, idx, g * (wgt * w_n)[..., None])
+        ddep[:, n] = torch.zeros((B, HW * D), dtype=dep.dtype,
+                                 device=dep.device).scatter_add_(
+            1, dflat, g_wgt).reshape(B, HW, D)
+    return ddep, dctx
 
 
 def ht_pool_order_plain(pix, di, wv, HW: int, D: int):
@@ -154,28 +166,8 @@ def ht_pool_backward_ordered(dep, ctx, wv, dout, ends, order, Zh: int,
     return ddep, dctx
 
 
-def ht_pool_points_backward(dep, ctx, pix, di, wv, grad_out):
-    """K3's backward on CUDA tensors (the forward's inputs and the
-    cotangent dout [B,Nq,C]): the ordering, then the kernel. Returns
-    (ddep [B,N,HW,D], dctx [B,N,HW,C])."""
-    B, N, HW, D = dep.shape
-    C = ctx.shape[-1]
-    Zh, Nq = pix.shape[2], pix.shape[3]
-    dout = grad_out.float().contiguous()
-    if tuple(dout.shape) != (B, Nq, C):
-        raise ValueError(f"ht_pool backward: dout {tuple(dout.shape)} != "
-                         f"{(B, Nq, C)}")
-    ends, order = ht_pool_order(pix, di, wv, HW, D)
-    return ht_pool_backward_ordered(dep, ctx, wv, dout, ends, order, Zh, Nq)
-
-
-def ht_pool_points(dep, ctx, pix, di, wv):
-    """K3 on the index streams (shapes as `ht_pool_points_plain`;
-    pix/di int32). Returns [B, Nq, C] f32."""
-    if dep.device.type == "cpu":
-        return ht_pool_points_plain(dep, ctx, pix, di, wv)
-    if dep.device.type != "cuda":
-        raise ValueError(f"ht_pool: unsupported device {dep.device}")
+def _check_inputs(dep, ctx, pix, di, wv):
+    """Raise unless K3's forward kernel can take these CUDA tensors."""
     if dep.dim() != 4 or ctx.dim() != 4 or pix.dim() != 4:
         raise ValueError("ht_pool: dep/ctx [B,N,HW,*] and pix/di/wv "
                          "[B,N,Zh,Nq] expected")
@@ -214,7 +206,84 @@ def ht_pool_points(dep, ctx, pix, di, wv):
     if N * pix.shape[2] > MAX_NZ:
         raise ValueError(f"ht_pool: {N} x {pix.shape[2]} points a pillar "
                          f"exceed the forward kernel's {MAX_NZ}")
-    return _HtPoolCUDA.apply(dep, ctx, pix, di, wv)
+
+
+# ------------------------------------------------ the custom ops of K3
+@torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::ht_pool",
+                         mutates_args=(), device_types="cpu")
+def _ht_pool_op(dep: torch.Tensor, ctx: torch.Tensor, pix: torch.Tensor,
+                di: torch.Tensor, wv: torch.Tensor) -> torch.Tensor:
+    return ht_pool_points_plain(dep, ctx, pix, di, wv)
+
+
+@_ht_pool_op.register_kernel("cuda")
+def _(dep, ctx, pix, di, wv):
+    _check_inputs(dep, ctx, pix, di, wv)
+    B, N, HW, D = dep.shape
+    C = ctx.shape[-1]
+    Zh, Nq = pix.shape[2], pix.shape[3]
+    out = torch.empty((B, Nq, C), dtype=torch.float32, device=dep.device)
+    KERNEL.launch(kernels.ptr(dep), kernels.ptr(ctx), kernels.ptr(pix),
+                  kernels.ptr(di), kernels.ptr(wv), kernels.ptr(out),
+                  B, N, HW, D, C, Zh, Nq, kernels.stream_of(dep))
+    return out
+
+
+@_ht_pool_op.register_fake
+def _(dep, ctx, pix, di, wv):
+    return ctx.new_empty((dep.shape[0], pix.shape[3], ctx.shape[-1]))
+
+
+@torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::ht_pool_backward",
+                         mutates_args=(), device_types="cpu")
+def _ht_pool_backward_op(dep: torch.Tensor, ctx: torch.Tensor,
+                         pix: torch.Tensor, di: torch.Tensor,
+                         wv: torch.Tensor, dout: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return ht_pool_backward_plain(dep, ctx, pix, di, wv, dout.float())
+
+
+@_ht_pool_backward_op.register_kernel("cuda")
+def _(dep, ctx, pix, di, wv, dout):
+    B, N, HW, D = dep.shape
+    C = ctx.shape[-1]
+    Zh, Nq = pix.shape[2], pix.shape[3]
+    dout = dout.float().contiguous()
+    if tuple(dout.shape) != (B, Nq, C):
+        raise ValueError(f"ht_pool backward: dout {tuple(dout.shape)} != "
+                         f"{(B, Nq, C)}")
+    ends, order = ht_pool_order(pix, di, wv, HW, D)
+    return ht_pool_backward_ordered(dep, ctx, wv, dout, ends, order, Zh, Nq)
+
+
+@_ht_pool_backward_op.register_fake
+def _(dep, ctx, pix, di, wv, dout):
+    return torch.empty_like(dep), torch.empty_like(ctx)
+
+
+def _ht_pool_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _ht_pool_grad(ctx, grad_out):
+    ddep, dctx = ht_pool_points_backward(*ctx.saved_tensors, grad_out)
+    return ddep, dctx, None, None, None
+
+
+_ht_pool_op.register_autograd(_ht_pool_grad, setup_context=_ht_pool_setup)
+
+
+def ht_pool_points_backward(dep, ctx, pix, di, wv, grad_out):
+    """K3's backward (`ocrfdet::ht_pool_backward`; the forward's inputs
+    and the cotangent dout [B,Nq,C]): on CUDA tensors the ordering, then
+    the kernel. Returns (ddep [B,N,HW,D], dctx [B,N,HW,C])."""
+    return _ht_pool_backward_op(dep, ctx, pix, di, wv, grad_out)
+
+
+def ht_pool_points(dep, ctx, pix, di, wv):
+    """K3 on the index streams (`ocrfdet::ht_pool`; shapes as
+    `ht_pool_points_plain`; pix/di int32). Returns [B, Nq, C] f32."""
+    return _ht_pool_op(dep, ctx, pix, di, wv)
 
 
 def ht_pool_inputs(depth, context, uvd, valid):

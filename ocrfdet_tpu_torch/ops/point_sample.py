@@ -8,26 +8,26 @@ in pixel coordinates (no half-pixel shift), taps outside the image
 weighing zero: for px in (-1, 0) the tap u = 0 weighs 1-|px|. This is
 `bilinear_sample_block` (ops/grid_sample.py), the JAX `point_sample_ref`.
 `point_sample` is the wrapper of kernel K4 (`csrc/point_sample.cu`, the
-counterpart of the Pallas `_point_sample_mm` forward): for CUDA tensors
-it launches the kernel, for CPU tensors it runs
-`point_sample_points_plain`. The kernel is specialised on C (1-4); for
-C = 4 with 16-byte aligned maps and output it reads each tap as one
-16-byte load (the launcher picks the form; both give the same bits).
-Both compute in fp32. On CUDA the backward (the maps' gradient, for
-every channel; px and py get none, as in the Pallas VJP) bins the points
-with a tap in the image by 16 x 16 output tile (`point_sample_order`,
-`ORDER_KERNEL`; its plain version is `point_sample_order_plain`), then
-launches K4's backward kernel (`BWD_KERNEL`), one block a tile, which
-writes every value of dmap once, each texel's sum in a fixed order: its
-points by base tap (v-1, u-1), (v-1, u), (v, u-1), (v, u), then by point
-index. `point_sample_backward_walk_plain` adds in that order and gives
-the kernel's bits. On the CPU the backward of `point_sample_points` is
-the plain version's autograd.
+counterpart of the Pallas `_point_sample_mm` forward): it calls the
+custom op `ocrfdet::point_sample`, whose CUDA implementation launches
+the kernel and whose CPU implementation is `point_sample_points_plain`.
+The kernel is specialised on C (1-4); for C = 4 with 16-byte aligned
+maps and output it reads each tap as one 16-byte load (the launcher
+picks the form; both give the same bits). Both compute in fp32. The
+registered backward (the maps' gradient, for every channel; px and py
+get none, as in the Pallas VJP) is the op `ocrfdet::point_sample_backward`.
+On CUDA it bins the points with a tap in the image by 16 x 16 output
+tile (`point_sample_order`, `ORDER_KERNEL`, inside the op; its plain
+version is `point_sample_order_plain`), then launches K4's backward kernel
+(`BWD_KERNEL`), one block a tile, which writes every value of dmap once,
+each texel's sum in a fixed order: its points by base tap (v-1, u-1),
+(v-1, u), (v, u-1), (v, u), then by point index. On the CPU it is
+`point_sample_backward_walk_plain`, which adds in that order and gives
+the kernel's bits.
 """
 from __future__ import annotations
 
 import ctypes
-
 import torch
 
 from .. import kernels
@@ -91,27 +91,6 @@ def point_sample_points_plain(maps, px, py):
     out = out + (wy1 * wx0)[..., None] * tap(x0, y0 + 1)
     out = out + (wy1 * wx1)[..., None] * tap(x0 + 1, y0 + 1)
     return out
-
-
-class _PointSampleCUDA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, maps, px, py):
-        BN, H, W, C = maps.shape
-        P = px.shape[1]
-        out = torch.empty((BN, P, C), dtype=torch.float32,
-                          device=maps.device)
-        KERNEL.launch(kernels.ptr(maps), kernels.ptr(px), kernels.ptr(py),
-                      kernels.ptr(out), BN, H, W, C, P,
-                      kernels.stream_of(maps))
-        ctx.save_for_backward(px, py)
-        ctx.map_shape = maps.shape
-        return out
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        px, py = ctx.saved_tensors
-        return (point_sample_points_backward(px, py, grad_out,
-                                             ctx.map_shape), None, None)
 
 
 def point_sample_order_plain(px, py, H: int, W: int, tile: int = TILE):
@@ -245,33 +224,8 @@ def binned_keys(spans, placed):
     return keys[torch.argsort(bins * 2 ** 41 + keys)]
 
 
-def point_sample_points_backward(px, py, grad_out, map_shape):
-    """K4's backward: px/py [BN,P] and the cotangent dout [BN,P,C] ->
-    dmap [BN,H,W,C] f32. On CUDA tensors the binning, then the kernel;
-    on CPU tensors `point_sample_backward_walk_plain`."""
-    BN, H, W, C = map_shape
-    P = px.shape[1]
-    dout = grad_out.float().contiguous()
-    if tuple(dout.shape) != (BN, P, C):
-        raise ValueError(f"point_sample backward: dout {tuple(dout.shape)}"
-                         f" != {(BN, P, C)}")
-    if px.device.type == "cpu":
-        return point_sample_backward_walk_plain(px, py, dout, map_shape)
-    if P >= 2 ** 31:
-        raise ValueError(f"point_sample backward: {P} points a map, the "
-                         f"kernel takes fewer than 2^31")
-    spans, placed = point_sample_order(px, py, H, W)
-    return point_sample_backward_ordered(px, py, dout, spans, placed,
-                                         map_shape)
-
-
-def point_sample_points(maps, px, py):
-    """K4: maps [BN,H,W,C] f32 (C <= 4); px/py [BN,P] f32. Returns
-    [BN,P,C] f32."""
-    if maps.device.type == "cpu":
-        return point_sample_points_plain(maps, px, py)
-    if maps.device.type != "cuda":
-        raise ValueError(f"point_sample: unsupported device {maps.device}")
+def _check_inputs(maps, px, py):
+    """Raise unless K4's forward kernel can take these CUDA tensors."""
     if maps.dim() != 4 or px.dim() != 2:
         raise ValueError("point_sample: maps [BN,H,W,C] and px/py [BN,P] "
                          "expected")
@@ -295,7 +249,96 @@ def point_sample_points(maps, px, py):
         raise ValueError(f"point_sample: px {tuple(px.shape)} / py "
                          f"{tuple(py.shape)} do not match maps "
                          f"{tuple(maps.shape)}")
-    return _PointSampleCUDA.apply(maps, px, py)
+
+
+# ------------------------------------------------ the custom ops of K4
+@torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::point_sample",
+                         mutates_args=(), device_types="cpu")
+def _point_sample_op(maps: torch.Tensor, px: torch.Tensor,
+                     py: torch.Tensor) -> torch.Tensor:
+    return point_sample_points_plain(maps, px, py)
+
+
+@_point_sample_op.register_kernel("cuda")
+def _(maps, px, py):
+    _check_inputs(maps, px, py)
+    BN, H, W, C = maps.shape
+    P = px.shape[1]
+    out = torch.empty((BN, P, C), dtype=torch.float32, device=maps.device)
+    KERNEL.launch(kernels.ptr(maps), kernels.ptr(px), kernels.ptr(py),
+                  kernels.ptr(out), BN, H, W, C, P, kernels.stream_of(maps))
+    return out
+
+
+@_point_sample_op.register_fake
+def _(maps, px, py):
+    return maps.new_empty((maps.shape[0], px.shape[1], maps.shape[3]))
+
+
+@torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::point_sample_backward",
+                         mutates_args=(), device_types="cpu")
+def _point_sample_backward_op(px: torch.Tensor, py: torch.Tensor,
+                              dout: torch.Tensor, H: int,
+                              W: int) -> torch.Tensor:
+    BN, P = px.shape
+    return point_sample_backward_walk_plain(px, py, dout.float(),
+                                            (BN, H, W, dout.shape[-1]))
+
+
+@_point_sample_backward_op.register_kernel("cuda")
+def _(px, py, dout, H, W):
+    BN, P = px.shape
+    C = dout.shape[-1]
+    dout = dout.float().contiguous()
+    if tuple(dout.shape) != (BN, P, C):
+        raise ValueError(f"point_sample backward: dout {tuple(dout.shape)}"
+                         f" != {(BN, P, C)}")
+    if P >= 2 ** 31:
+        raise ValueError(f"point_sample backward: {P} points a map, the "
+                         f"kernel takes fewer than 2^31")
+    spans, placed = point_sample_order(px, py, H, W)
+    return point_sample_backward_ordered(px, py, dout, spans, placed,
+                                         (BN, H, W, C))
+
+
+@_point_sample_backward_op.register_fake
+def _(px, py, dout, H, W):
+    return dout.new_empty((px.shape[0], H, W, dout.shape[-1]),
+                          dtype=torch.float32)
+
+
+def _point_sample_setup(ctx, inputs, output):
+    maps, px, py = inputs
+    ctx.save_for_backward(px, py)
+    ctx.map_shape = tuple(maps.shape)
+
+
+def _point_sample_grad(ctx, grad_out):
+    px, py = ctx.saved_tensors
+    return (point_sample_points_backward(px, py, grad_out, ctx.map_shape),
+            None, None)
+
+
+_point_sample_op.register_autograd(_point_sample_grad,
+                                   setup_context=_point_sample_setup)
+
+
+def point_sample_points_backward(px, py, grad_out, map_shape):
+    """K4's backward (`ocrfdet::point_sample_backward`): px/py [BN,P] and
+    the cotangent dout [BN,P,C] -> dmap [BN,H,W,C] f32. On CUDA tensors
+    the binning, then the kernel; on CPU tensors
+    `point_sample_backward_walk_plain`."""
+    BN, H, W, C = map_shape
+    if tuple(grad_out.shape) != (BN, px.shape[1], C):
+        raise ValueError(f"point_sample backward: dout "
+                         f"{tuple(grad_out.shape)} != {(BN, px.shape[1], C)}")
+    return _point_sample_backward_op(px, py, grad_out, H, W)
+
+
+def point_sample_points(maps, px, py):
+    """K4 (`ocrfdet::point_sample`): maps [BN,H,W,C] f32 (C <= 4); px/py
+    [BN,P] f32. Returns [BN,P,C] f32."""
+    return _point_sample_op(maps, px, py)
 
 
 def point_sample(maps, px, py):

@@ -14,19 +14,22 @@ Gaussian's depth: the forward also finds each pixel's crossing slot
 (`cross` [NT, P] int32, the slot at which T first drops below 0.5, -1
 if none), which the backward reads.
 
-For CUDA tensors `composite_tiles` runs kernel K5 (`csrc/
-composite_tiles.cu`: `KERNEL` forward, `BWD_KERNEL` backward, one launch
-each over all the samples' tiles); for CPU tensors it runs the plain
-version, a `torch.autograd.Function` whose forward and backward mirror
-the Pallas kernels' chunk-by-chunk computation (render_pallas.py
+`composite_tiles` calls the custom op `ocrfdet::composite_forward`,
+whose registered backward is the op `ocrfdet::composite_backward`. For
+CUDA tensors they run kernel K5 (`csrc/composite_tiles.cu`: `KERNEL`
+forward, `BWD_KERNEL` backward, one launch each over all the samples'
+tiles); for CPU tensors its plain version, whose forward and backward
+mirror the Pallas kernels' chunk-by-chunk computation (render_pallas.py
 `_mirror_fwd` / `_mirror_bwd`, chunks of `CHUNK` Gaussians) with tensor
 operations, the backward written out (the suffix trick) rather than
 left to autograd, which would keep [NT, CHUNK, P] temporaries of every
-chunk.
+chunk. `composite_tiles_plain` is that plain version as an autograd
+function on any device.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -230,34 +233,8 @@ def composite_backward(attrs, tot_rgb, g_rgb, g_logt, g_med, cross,
     return dattrs
 
 
-class _CompositeCUDA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, attrs, n_tiles, n_tx, tile_w):
-        rgb, med, logt, cross = composite_forward(attrs, n_tiles, n_tx,
-                                                  tile_w)
-        ctx.save_for_backward(attrs, rgb, cross)
-        ctx.dims = (n_tiles, n_tx, tile_w)
-        return rgb, med, logt
-
-    @staticmethod
-    def backward(ctx, g_rgb, g_med, g_logt):
-        attrs, rgb, cross = ctx.saved_tensors
-        g_rgb, g_med, g_logt = _cotangents(rgb, g_rgb, g_med, g_logt)
-        d = composite_backward(attrs, rgb, g_rgb, g_logt, g_med, cross,
-                               *ctx.dims)
-        return d, None, None, None
-
-
-def composite_tiles(attrs, n_tiles: int, n_tx: int, tile_h: int,
-                    tile_w: int):
-    """K5: attrs [NT, M, 11] f32 (NT a multiple of n_tiles, the tiles of
-    one sample in raster order, n_tx per row). Returns (rgb [NT,P,3],
-    med [NT,P], logt [NT,P]), differentiable in attrs."""
-    if attrs.device.type == "cpu":
-        return composite_tiles_plain(attrs, n_tiles, n_tx, tile_h, tile_w)
-    if attrs.device.type != "cuda":
-        raise ValueError(f"composite_tiles: unsupported device "
-                         f"{attrs.device}")
+def _check_attrs(attrs, n_tiles: int, tile_h: int, tile_w: int):
+    """Raise unless K5's kernels can take this CUDA tensor."""
     if attrs.dim() != 3 or attrs.shape[-1] != len(STREAMS):
         raise ValueError(f"composite_tiles: attrs [NT, M, 11] expected, "
                          f"got {tuple(attrs.shape)}")
@@ -272,4 +249,81 @@ def composite_tiles(attrs, n_tiles: int, n_tx: int, tile_h: int,
     if attrs.shape[0] % n_tiles:
         raise ValueError(f"composite_tiles: {attrs.shape[0]} tiles is not "
                          f"a multiple of {n_tiles}")
-    return _CompositeCUDA.apply(attrs, n_tiles, n_tx, tile_w)
+
+
+# ------------------------------------------------ the custom ops of K5
+@torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::composite_forward",
+                         mutates_args=(), device_types="cpu")
+def _composite_forward_op(attrs: torch.Tensor, n_tiles: int, n_tx: int,
+                          tile_h: int, tile_w: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
+    return composite_forward_plain(attrs, n_tiles, n_tx, tile_h, tile_w)
+
+
+@_composite_forward_op.register_kernel("cuda")
+def _(attrs, n_tiles, n_tx, tile_h, tile_w):
+    _check_attrs(attrs, n_tiles, tile_h, tile_w)
+    return composite_forward(attrs, n_tiles, n_tx, tile_w)
+
+
+@_composite_forward_op.register_fake
+def _(attrs, n_tiles, n_tx, tile_h, tile_w):
+    NT, P = attrs.shape[0], tile_h * tile_w
+    med = attrs.new_empty((NT, P))
+    return (attrs.new_empty((NT, P, 3)), med, torch.empty_like(med),
+            attrs.new_empty((NT, P), dtype=torch.int32))
+
+
+@torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::composite_backward",
+                         mutates_args=(), device_types="cpu")
+def _composite_backward_op(attrs: torch.Tensor, tot_rgb: torch.Tensor,
+                           g_rgb: torch.Tensor, g_logt: torch.Tensor,
+                           g_med: torch.Tensor, cross: torch.Tensor,
+                           n_tiles: int, n_tx: int, tile_h: int,
+                           tile_w: int) -> torch.Tensor:
+    return composite_backward_plain(attrs, tot_rgb, g_rgb, g_logt, g_med,
+                                    cross, n_tiles, n_tx, tile_h, tile_w)
+
+
+@_composite_backward_op.register_kernel("cuda")
+def _(attrs, tot_rgb, g_rgb, g_logt, g_med, cross, n_tiles, n_tx, tile_h,
+      tile_w):
+    return composite_backward(attrs, tot_rgb, g_rgb, g_logt, g_med, cross,
+                              n_tiles, n_tx, tile_w)
+
+
+@_composite_backward_op.register_fake
+def _(attrs, tot_rgb, g_rgb, g_logt, g_med, cross, n_tiles, n_tx, tile_h,
+      tile_w):
+    return torch.empty_like(attrs)
+
+
+def _composite_setup(ctx, inputs, output):
+    attrs, n_tiles, n_tx, tile_h, tile_w = inputs
+    rgb, _, _, cross = output
+    ctx.save_for_backward(attrs, rgb, cross)
+    ctx.dims = (n_tiles, n_tx, tile_h, tile_w)
+
+
+def _composite_grad(ctx, g_rgb, g_med, g_logt, g_cross):
+    attrs, rgb, cross = ctx.saved_tensors
+    g_rgb, g_med, g_logt = _cotangents(rgb, g_rgb, g_med, g_logt)
+    d = _composite_backward_op(attrs, rgb, g_rgb, g_logt, g_med, cross,
+                               *ctx.dims)
+    return d, None, None, None, None
+
+
+_composite_forward_op.register_autograd(_composite_grad,
+                                        setup_context=_composite_setup)
+
+
+def composite_tiles(attrs, n_tiles: int, n_tx: int, tile_h: int,
+                    tile_w: int):
+    """K5 (`ocrfdet::composite_forward`): attrs [NT, M, 11] f32 (NT a
+    multiple of n_tiles, the tiles of one sample in raster order, n_tx
+    per row). Returns (rgb [NT,P,3], med [NT,P], logt [NT,P]),
+    differentiable in attrs."""
+    rgb, med, logt, _ = _composite_forward_op(
+        attrs, n_tiles, n_tx, tile_h, tile_w)
+    return rgb, med, logt

@@ -1,9 +1,18 @@
-"""Train OcRFDet on one card (counterpart of tools_tpu/train.py).
+"""Train OcRFDet (counterpart of tools_tpu/train.py).
 
   python -m ocrfdet_tpu_torch.tools.train \
       --infos data/bevdetv2-nuscenes_infos_train.pkl \
       --work-dir work/ocrfdet [--tiny | --geoenh [--vggt-ckpt PATH] |
       --frames8] [--resume] [--device cuda]
+  torchrun --nproc-per-node N -m ocrfdet_tpu_torch.tools.train \
+      --multihost --infos ... --work-dir ...
+
+With `--multihost` (one process per card, from `torchrun`'s
+environment) the run is data-parallel over min(N, batch size) ranks
+(`parallel/`): each loads its slice of every global batch, the
+gradients are averaged, the optimizer state and the EMAs are ZeRO
+slices, and rank 0 writes the whole state; a rank past the batch size
+stays idle.
 
 `--geoenh` trains GeoEnhDet (`geoenh_config()`, batch 4) with its frozen
 VGGT-1B teacher, whose weights are seeded random unless `--vggt-ckpt`
@@ -60,7 +69,8 @@ def parse_args(argv=None):
     ap.add_argument("--batch-size", type=int, default=0)
     ap.add_argument("--max-steps-per-epoch", type=int, default=0)
     ap.add_argument("--multihost", action="store_true",
-                    help="one process per host (not ported)")
+                    help="data-parallel over torchrun's processes, one a "
+                         "card (NCCL; gloo with --device cpu)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -70,22 +80,32 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost: multi-process training is ROADMAP item 13")
-
     from ..data.dataset import Loader, NuScenesDataset
     from ..train.trainer import Trainer
 
     cfg = select_config(args)
+    mesh = None
+    if args.multihost:
+        from ..parallel.mesh import init_data_mesh, release
+        mesh = init_data_mesh(cfg.batch_size, device=args.device,
+                              space=cfg.parallel.space_axis)
+        if not mesh.active:
+            print(f"rank {mesh.rank}: idle (the data axis has {mesh.data} "
+                  f"ranks for batch {cfg.batch_size})")
+            release()
+            return
     dataset = NuScenesDataset(cfg, args.infos, is_train=True)
-    loader = Loader(dataset, cfg.batch_size)
+    loader = Loader(dataset, cfg.batch_size,
+                    process_index=mesh.rank if mesh else 0,
+                    process_count=mesh.data if mesh else 1)
     trainer = Trainer(cfg, args.work_dir, steps_per_epoch=len(loader),
-                      device=args.device)
+                      device=args.device, mesh=mesh)
     trainer.init_state()
     start = trainer.resume() if args.resume else 0
     trainer.fit(loader, start_epoch=start,
                 max_steps_per_epoch=args.max_steps_per_epoch or None)
+    if mesh is not None:
+        release()
 
 
 if __name__ == "__main__":

@@ -78,12 +78,19 @@ def run_eval(cfg: OcRFDetConfig, model: OcRFDet, loader,
              out_json: Optional[str] = None,
              max_batches: Optional[int] = None,
              token_to_pose: Optional[dict] = None,
-             with_prev: float = 1.0) -> Dict[str, float]:
+             with_prev: float = 1.0, mesh=None) -> Dict[str, float]:
     """Evaluate `model` (eval mode, on its device) over `loader.epoch(0)`.
 
     token_to_pose maps sample_token -> the key CAM_FRONT info dict
     (ego2global_* fields) for global-frame JSON output; identity pose
-    is used when absent (native metrics are pose-independent)."""
+    is used when absent (native metrics are pose-independent).
+
+    With `mesh` (`parallel/mesh.py`, the multi-GPU-test analog), every
+    data rank runs this and `loader` yields the rank's rows of each
+    batch (`Loader(process_index=rank, process_count=data)`); the
+    ranks' evaluators and result JSON are gathered and merged
+    (`parallel/multihost.py`), every rank returns the metrics of all
+    the samples, and rank 0 writes the JSON."""
     device = next(model.parameters()).device
     evaluator = DetectionEvaluator(cfg.class_names)
     results_json = {}
@@ -121,7 +128,11 @@ def run_eval(cfg: OcRFDetConfig, model: OcRFDet, loader,
                             cfg.class_names, pose)]
     finally:
         batches.close()
+    if mesh is not None:
+        from ..parallel.multihost import merge_eval_results
+        evaluator, results_json = merge_eval_results(evaluator, results_json,
+                                                     mesh.group)
     metrics = evaluator.evaluate()
-    if out_json is not None:
+    if out_json is not None and (mesh is None or mesh.rank == 0):
         write_results_json(results_json, out_json)
     return metrics

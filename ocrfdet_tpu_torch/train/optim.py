@@ -126,20 +126,28 @@ class Optimizer:
     """The JAX package's `make_optimizer`: the global-norm clip over every
     trainable parameter, then AdamW per group at the group's learning
     rate (`lr_at`, times `render_mult_at` for the render group). The
-    frozen group gets no gradient and no optimizer state."""
+    frozen group gets no gradient and no optimizer state. With `shard`
+    (a ZeRO layout's view of a tensor: `parallel/step.py`), AdamW keeps
+    moments for, and updates, only each parameter's view; the clip reads
+    the whole gradients."""
 
-    def __init__(self, cfg: OptimConfig, named_params, steps_per_epoch: int):
+    def __init__(self, cfg: OptimConfig, named_params, steps_per_epoch: int,
+                 shard=None):
         self.cfg, self.steps_per_epoch = cfg, steps_per_epoch
+        self.shard = shard or (lambda t: t)
         groups = param_groups(named_params)
         for _, p in groups["frozen"]:
             p.requires_grad_(False)
         self.names = {k: [n for n, _ in v] for k, v in groups.items()}
-        self.groups = {k: AdamW([p for _, p in groups[k]], cfg.weight_decay)
-                       for k in ("render", "other")}
+        self.full = {k: [p for _, p in groups[k]] for k in ("render", "other")}
+        with torch.no_grad():
+            self.groups = {k: AdamW([self.shard(p) for p in self.full[k]],
+                                    cfg.weight_decay)
+                           for k in ("render", "other")}
 
     def params(self) -> List[torch.Tensor]:
         """The trainable parameters, render group first."""
-        return self.groups["render"].params + self.groups["other"].params
+        return self.full["render"] + self.full["other"]
 
     def state_tensors(self) -> List[torch.Tensor]:
         return [t for g in self.groups.values() for t in g.state_tensors()]
@@ -162,6 +170,7 @@ class Optimizer:
         """One update of `params()` from `grads` (in that order, clipped
         in place); `count` is the number of earlier updates."""
         clip_by_global_norm(grads, self.cfg.grad_clip_norm)
+        grads = [self.shard(g) for g in grads]
         n = len(self.groups["render"].params)
         lr = lr_at(self.cfg, count)
         mult = render_mult_at(self.cfg, count, self.steps_per_epoch)

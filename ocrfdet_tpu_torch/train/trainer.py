@@ -1,5 +1,7 @@
 """Training loop: epochs, the reference's hook gates, checkpoints and the
-metrics log (counterpart of ocrfdet_tpu/train/trainer.py on one device).
+metrics log (counterpart of ocrfdet_tpu/train/trainer.py), on one device
+or, with a `mesh` (`parallel/mesh.py`), as one data rank of a
+data-parallel run (`parallel/step.py`'s state and collectives).
 
   * SequentialControlHook -> `with_prev` 0 before
     `optim.temporal_start_epoch`;
@@ -8,7 +10,9 @@ metrics log (counterpart of ocrfdet_tpu/train/trainer.py on one device).
     raw and the EMA weights;
   * CheckpointHook -> `torch.save` of the whole `TrainState` per epoch
     (GeoEnhDet's frozen teacher included, as the JAX package's),
-    `latest.json` naming the newest, and `resume()`;
+    `latest.json` naming the newest, and `resume()`; in a data-parallel
+    run every rank gathers the whole state and rank 0 writes it, so a
+    checkpoint resumes on any number of ranks;
   * GeoEnhDet with `vggt_teacher.ckpt_path`: the released VGGT weights
     grafted onto the teacher at `init_state`.
 
@@ -24,6 +28,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from .. import entry
 from ..config import OcRFDetConfig
@@ -65,12 +70,16 @@ class EpochStats:
 
 class Trainer:
     def __init__(self, cfg: OcRFDetConfig, work_dir: str,
-                 steps_per_epoch: int, device=None):
+                 steps_per_epoch: int, device=None, mesh=None):
         """`steps_per_epoch` is `len(loader)`: the render learning rate
-        decays by epoch. `device` defaults to "cuda", which must exist."""
+        decays by epoch. `device` defaults to "cuda", which must exist;
+        with `mesh` (a data rank, whose loader yields its rows of each
+        batch) it is the mesh's device."""
         self.cfg = cfg
         self.work_dir = work_dir
-        self.device = entry.resolve_device(device)
+        self.mesh = mesh
+        self.device = (entry.resolve_device(device) if mesh is None
+                       else mesh.device)
         os.makedirs(work_dir, exist_ok=True)
         self.steps_per_epoch = steps_per_epoch
         self.state: Optional[entry.TrainState] = None
@@ -79,9 +88,15 @@ class Trainer:
         """The seeded training model (render heads on), AdamW, EMA; with
         a teacher checkpoint, its weights in the frozen teacher."""
         t0 = time.perf_counter()
-        self.state = entry.build_trainer(
-            self.cfg, self.device, seed=self.cfg.seed,
-            steps_per_epoch=self.steps_per_epoch)
+        if self.mesh is None:
+            self.state = entry.build_trainer(
+                self.cfg, self.device, seed=self.cfg.seed,
+                steps_per_epoch=self.steps_per_epoch)
+        else:
+            from ..parallel import step as dp
+            self.state = dp.build_trainer(
+                self.cfg, self.mesh, seed=self.cfg.seed,
+                steps_per_epoch=self.steps_per_epoch)
         tcfg = self.cfg.vggt_teacher
         if tcfg is not None and tcfg.ckpt_path:
             from ..models.vggt import load_torch_weights
@@ -93,14 +108,20 @@ class Trainer:
 
     # -------------------------------------------------- checkpointing
     def save(self, epoch: int):
+        """Write the whole state (every data rank calls this; rank 0
+        writes)."""
         path = os.path.abspath(
             os.path.join(self.work_dir, f"ckpt_epoch_{epoch}.pt"))
         t0 = time.perf_counter()
-        torch.save(self.state.state_dict(), path)
-        with open(os.path.join(self.work_dir, "latest.json"), "w") as f:
-            json.dump({"epoch": epoch, "path": path}, f)
-        print(f"saved {path} ({os.path.getsize(path) / 1e9:.3f} GB in "
-              f"{time.perf_counter() - t0:.1f} s)")
+        sd = self.state.state_dict()
+        if self.mesh is None or self.mesh.rank == 0:
+            torch.save(sd, path)
+            with open(os.path.join(self.work_dir, "latest.json"), "w") as f:
+                json.dump({"epoch": epoch, "path": path}, f)
+            print(f"saved {path} ({os.path.getsize(path) / 1e9:.3f} GB in "
+                  f"{time.perf_counter() - t0:.1f} s)")
+        if self.mesh is not None:
+            dist.barrier(self.mesh.group)
 
     def resume(self) -> int:
         """Load the checkpoint `latest.json` names into the state; the
@@ -140,7 +161,8 @@ class Trainer:
                 stats.wait_s.append(t_got - t)
                 stats.step_s.append(time.perf_counter() - t_got)
                 stats.metrics.append(vals)
-                if i % log_every == 0:
+                if i % log_every == 0 and (self.mesh is None
+                                           or self.mesh.rank == 0):
                     dt = time.perf_counter() - t0
                     fps = (i + 1) * self.cfg.batch_size / max(dt, 1e-9)
                     parts = " ".join(

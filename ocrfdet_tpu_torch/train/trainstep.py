@@ -1,8 +1,10 @@
 """Loss assembly (counterpart of ocrfdet_tpu/train/trainstep.py): the
 depth and semantic losses, the BEV mask and opacity losses, the render
 losses, GeoEnhDet's two distillation losses and the CenterHead losses of
-every task, in one dict. On one device the JAX package's cross-replica
-mean (`mean_fn`) is the identity.
+every task, in one dict. `mean_fn` is the JAX package's cross-replica
+mean of the loss normalisers (the counts of valid depth pixels, of
+heatmap peaks and of boxes, all from the targets): the identity on one
+device, the data ranks' mean in `parallel/step.py`.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ from ..losses.render import render_losses
 from ..models.ocrf.fusion import bev_centerness_weight
 
 
-def compute_losses(cfg: OcRFDetConfig, preds, aux,
-                   batch) -> Dict[str, torch.Tensor]:
+def compute_losses(cfg: OcRFDetConfig, preds, aux, batch,
+                   mean_fn=lambda x: x) -> Dict[str, torch.Tensor]:
     losses: Dict[str, torch.Tensor] = {}
     B, N = batch["gt_depth"].shape[:2]
     h = cfg.data.input_size[0] // cfg.vt.downsample
@@ -33,7 +35,8 @@ def compute_losses(cfg: OcRFDetConfig, preds, aux,
     dl, sl = depth_semantic_loss(
         aux["depth"].reshape(B * N, h, w, D),
         aux["semantic"].reshape(B * N, h, w, 2), d_onehot, s_onehot, valid,
-        cfg.vt.loss_depth_weight, cfg.vt.loss_semantic_weight)
+        cfg.vt.loss_depth_weight, cfg.vt.loss_semantic_weight,
+        mean_fn=mean_fn)
     losses["loss_depth"] = dl
     losses["loss_ce_semantic"] = sl
 
@@ -63,7 +66,8 @@ def compute_losses(cfg: OcRFDetConfig, preds, aux,
 
     tgts = {k: batch[k] for k in ("heatmaps", "anno_boxes", "inds", "masks")}
     losses.update(center_head_loss(preds, tgts, cfg.head.code_weights,
-                                   loss_bbox_weight=cfg.head.loss_bbox_weight))
+                                   loss_bbox_weight=cfg.head.loss_bbox_weight,
+                                   mean_fn=mean_fn))
     return losses
 
 

@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ocrfdet_tpu")
 
 def _port_sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "bench_kernel_builds.py"]
+                                         ROOT / "bench_kernel_builds.py",
+                                         ROOT / "bench_trees.py"]
 
 
 def _imported_roots(path: Path):
@@ -46,7 +47,7 @@ def test_importing_every_port_module_loads_no_jax():
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "import chip_smoke, bench_kernel_builds\n"
+        "import chip_smoke, bench_kernel_builds, bench_trees\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -155,3 +156,15 @@ def test_bench_kernel_builds_refuses_without_cuda():
                          text=True, timeout=300)
     assert res.returncode != 0
     assert '"builds"' not in res.stdout
+
+
+def test_bench_trees_refuses_a_tree_without_the_package(tmp_path):
+    """bench_trees.py exits non-zero, before it starts any run, when a
+    tree holds no ocrfdet_tpu_torch/."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, str(ROOT / "bench_trees.py"),
+                          str(tmp_path)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "holds no ocrfdet_tpu_torch/" in res.stderr
+    assert '"trees"' not in res.stdout

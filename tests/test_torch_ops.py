@@ -226,13 +226,21 @@ def test_cost_volume_behind_camera_is_zero_warp_plus_bias():
 
 
 def test_cost_volume_wrapper_rejects_other_devices():
-    """Only CPU tensors take the plain version; other devices launch the
-    kernel or raise."""
+    """Only CPU tensors take the plain version and CUDA tensors the
+    kernel (the custom op `ocrfdet::cost_volume`): meta tensors get the
+    op's shape function and launch nothing, and a backend the op has no
+    kernel for (sparse tensors) raises."""
     c = _case(seed=0)
-    args = [torch.from_numpy(np.asarray(a)).to("meta")
+    host = [torch.from_numpy(np.asarray(a))
             for a in (c["curr"], c["prev"], c["depths"], *c["coef"])]
-    with pytest.raises(ValueError, match="unsupported device"):
-        tcv.cost_volume(*args, BIAS)
+    before = tcv.KERNEL.launches
+    out = tcv.cost_volume(*[a.to("meta") for a in host], BIAS)
+    B, N, H, W, _ = host[0].shape
+    assert out.device.type == "meta" and out.dtype == torch.float32
+    assert tuple(out.shape) == (B, N, host[2].shape[0], H, W)
+    assert tcv.KERNEL.launches == before
+    with pytest.raises(NotImplementedError, match="Sparse"):
+        tcv.cost_volume(host[0].to_sparse(), *host[1:], BIAS)
 
 
 # --------------------------------------------------------------------
@@ -334,9 +342,14 @@ def test_bev_pool_points_drops_invalid_cells():
 
 
 def test_bev_pool_points_wrapper_rejects_other_devices():
-    t = lambda a: torch.as_tensor(a).to("meta")  # noqa: E731
-    with pytest.raises(ValueError, match="unsupported device"):
-        tbp.bev_pool_points(t(np.ones((1, 2), np.float32)),
-                            t(np.zeros((1, 2), np.int32)),
-                            t(np.zeros((1, 2), np.int32)),
-                            t(np.ones((1, 1, 3), np.float32)), 4)
+    """As K1's: meta tensors get `ocrfdet::bev_pool`'s shape function and
+    launch nothing, sparse tensors raise."""
+    args = [torch.as_tensor(a) for a in (
+        np.ones((1, 2), np.float32), np.zeros((1, 2), np.int32),
+        np.zeros((1, 2), np.int32), np.ones((1, 1, 3), np.float32))]
+    before = tbp.KERNEL.launches
+    out = tbp.bev_pool_points(*[a.to("meta") for a in args], 4)
+    assert out.device.type == "meta" and tuple(out.shape) == (1, 4, 3)
+    assert tbp.KERNEL.launches == before
+    with pytest.raises(NotImplementedError, match="Sparse"):
+        tbp.bev_pool_points(args[0].to_sparse(), *args[1:], 4)
