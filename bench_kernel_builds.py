@@ -364,12 +364,11 @@ def time_k5(dev, trees: dict) -> dict:
     state = entry.build_trainer(cfg, dev, seed=0)
     batch = entry.make_batch(cfg, seed=0, batch_size=2, device=dev,
                              with_targets=True)
-    with chip_smoke.recording_k5() as rec:
+    with chip_smoke.recording_kernel_inputs() as rec:
         entry.train_step(state, batch)
     del state, batch
     torch.cuda.empty_cache()
-    attrs = rec["attrs"]
-    T, n_tx = rec["dims"][:2]
+    attrs, T, n_tx = rec["K5"][0][:3]
     prgb, pmed, plogt, pcross = ct.composite_forward_plain(attrs, T, n_tx,
                                                            16, 16)
     gen = torch.Generator(device=dev).manual_seed(15)

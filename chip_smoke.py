@@ -109,11 +109,25 @@ Phases, each printing a line:
      algorithms (`deterministic_step`): losses, gradients, parameters
      and buffers bit for bit every step, the gathered ZeRO state equal;
      `run_eval` with and without the process group the same;
- 17. one JSON line describing every kernel (the nine kernel functions
+ 17. `[space]`: the space axis (`parallel/`, the detector's camera
+     blocks, BEV row blocks and render bands) at 2 ranks on the one
+     card, two processes of this script (`--space-rank`) over gloo
+     (NCCL refuses two ranks on one device), against the single device
+     in this process (`check_space`): the flagship's fp32 request and
+     the gradients of a fixed functional of it, 20 bf16 requests, 3
+     fp32 training steps on camera-0-duplicated batches against a
+     rounding floor; each rank's launches (2 of each of K1-K4 a
+     request, phase 6's a step, K5 on a 128-row band), step ms, peak
+     memory and collectives, and every kernel against its plain version
+     on the inputs a rank gave it;
+ 18. one JSON line describing every kernel (the nine kernel functions
      and K4's backward binning; launches from the training window;
      forwards timed at batch 1 with their batch-2 times under `*_b2`
-     and the batch-4 times under `*_b4`), the card's name and power
-     limit, and last `{"ok": true, "device": {...}}`.
+     and the batch-4 times under `*_b4`; a space rank's launches over
+     its 3 steps and the largest error against the plain version at a
+     rank's shapes under `launches_space` and `max_abs_err_space`), the
+     card's name and power limit, and last `{"ok": true, "device":
+     {...}}`.
 Any failure raises and exits non-zero before the last line. It needs
 CUDA and the repository around it; imports no JAX.
 """
@@ -129,6 +143,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -1058,18 +1073,23 @@ def check_k5(attrs, T, n_tx):
 
 
 @contextlib.contextmanager
-def recording_k5():
-    """Record the first input of K5 (attrs and its tiling) that the model
-    hands to `composite_tiles`: yields {"attrs", "dims"}."""
-    from ocrfdet_tpu_torch.ops.splat import composite as ct
+def recording_kernel_inputs():
+    """Record a call of each model-level kernel wrapper (K1-K5,
+    `_kernel_entries`), the first that is differentiated (the key
+    frame's) where there is one: yields {name: (arguments, which of
+    them require grad)}."""
     recorded = {}
-    original = ct.composite_tiles
-
-    def record(attrs, *dims):
-        recorded.setdefault("attrs", attrs.detach().clone())
-        recorded.setdefault("dims", dims)
-        return original(attrs, *dims)
-    with mock.patch.object(ct, "composite_tiles", record):
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr, _) in _kernel_entries().items():
+            def record(*args, _f=getattr(mod, attr), _name=name):
+                req = [torch.is_tensor(a) and a.requires_grad for a in args]
+                if _name not in recorded or (any(req) and not any(
+                        recorded[_name][1])):
+                    recorded[_name] = (
+                        [a.detach().clone() if torch.is_tensor(a) else a
+                         for a in args], req)
+                return _f(*args)
+            stack.enter_context(mock.patch.object(mod, attr, record))
         yield recorded
 
 
@@ -1077,8 +1097,9 @@ def check_training(dev, all_kernels, per_step, n_steps=10, n_warmup=3):
     """The main path: flagship training steps at batch 2 through
     `entry.train_step`. Every kernel's count is set to 0 just before the
     timed window and read just after: each must have launched exactly
-    per_step[kernel] times per step. Returns (launches, the K5 input
-    streams recorded in the first warm-up step and their tiling)."""
+    per_step[kernel] times per step. Returns (launches, the kernels'
+    inputs recorded in the first warm-up step: `recording_kernel_inputs`;
+    K5's are its streams and their tiling)."""
     from ocrfdet_tpu_torch import bench_train, entry
     from ocrfdet_tpu_torch.config import ocrfdet_config
 
@@ -1092,7 +1113,7 @@ def check_training(dev, all_kernels, per_step, n_steps=10, n_warmup=3):
         f"{cfg.compute_dtype} towers, remat={cfg.backbone.remat}) and 2 "
         f"training batches of 2 in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    with recording_k5() as recorded:
+    with recording_kernel_inputs() as recorded:
         first = entry.train_step(state, batches[0])
     for i in range(1, n_warmup):
         entry.train_step(state, batches[i % len(batches)])
@@ -2373,6 +2394,654 @@ def check_ddp(dev, all_kernels, per_step, smi, n_steps=3):
     log("[ddp] process group released")
 
 
+# ------------------------------------------------------------ [space]
+SPACE = 2               # the [space] phase's ranks, all on the one card
+SPACE_STEPS = 3
+SPACE_REQUESTS = 20
+# per training step and rank, at space 2 as at space 1: K1 and each
+# forward of K2-K4 once per temporal frame on the rank's 3 cameras, the
+# backwards once, K5 once on the rank's band of rows
+PER_STEP = {"cost_volume": 2, "bev_pool": 2, "ht_pool": 2,
+            "point_sample": 2, "bev_pool_bwd": 1, "ht_pool_bwd": 1,
+            "ht_pool_order": 1, "point_sample_bwd": 1,
+            "point_sample_order": 1, "composite_tiles": 1,
+            "composite_tiles_bwd": 1}
+# the kernels of each model-level wrapper (forward, backward)
+WRAPPER_KERNELS = {"K1": ("cost_volume", None),
+                   "K2": ("bev_pool", "bev_pool_bwd"),
+                   "K3": ("ht_pool", "ht_pool_bwd"),
+                   "K4": ("point_sample", "point_sample_bwd"),
+                   "K5": ("composite_tiles", "composite_tiles_bwd")}
+# tolerances of the kernels against their plain versions on the ranks'
+# recorded inputs, those of phases 3 and 7: (forward rtol, forward atol,
+# atol a multiple of the output's scale?), backward (rtol, atol x scale)
+REPLAY_TOL = {"K1": ((1e-5, 1e-3, False), None),
+              "K2": ((1e-5, 1e-5, False), (1e-5, 1e-5)),
+              "K3": ((1e-5, 1e-5, True), (1e-5, 1e-5)),
+              "K4": ((0.0, 0.0, False), (1e-5, 1e-5)),
+              "K5": ((1e-4, 1e-5, True), (1e-4, 1e-5))}
+
+
+def _kernel_lists():
+    """(the nine kernel functions and K4's backward binning, those and
+    K3's backward ordering: the kernels whose launches are counted)."""
+    from ocrfdet_tpu_torch.ops import bev_pool as bp
+    from ocrfdet_tpu_torch.ops import cost_volume as cvm
+    from ocrfdet_tpu_torch.ops import ht_pool as htp
+    from ocrfdet_tpu_torch.ops import point_sample as ps
+    from ocrfdet_tpu_torch.ops.splat import composite as ct
+    kernel_list = [cvm.KERNEL, bp.KERNEL, bp.BWD_KERNEL, htp.KERNEL,
+                   htp.BWD_KERNEL, ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL,
+                   ct.BWD_KERNEL, ps.ORDER_KERNEL]
+    return kernel_list, kernel_list + [htp.ORDER_KERNEL]
+
+
+def _space_configs(space=1):
+    """The [space] phase's flagship configs at `space` (camera sharding
+    on, `shard_vt`, `shard_bev` and `shard_render` at their defaults):
+    the fp32 eval request, the configured bf16 eval window (batch 1)
+    and the training step (batch 2) in fp32 with the ASPP dropout off
+    (each rank draws its own masks, so a sharded and a single-device
+    step would drop different features)."""
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+
+    def at(cfg):
+        return dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, space_axis=space, shard_cameras=True))
+    e = ocrfdet_config(batch_size=1)
+    t = ocrfdet_config(batch_size=2, compute_dtype="float32")
+    t = dataclasses.replace(t, vt=dataclasses.replace(
+        t.vt, depthnet=dataclasses.replace(t.vt.depthnet,
+                                           aspp_dropout=0.0)))
+    return (at(dataclasses.replace(e, compute_dtype="float32")), at(e),
+            at(t))
+
+
+def _camera0_batches(cfg, dev):
+    """Two training batches (seeds 0, 1) with camera 0 copied over every
+    camera of every per-camera tensor and render camera 0 (the input of
+    JAX's tests/test_parallel.py gradient test): each rank's image
+    backbone normalises its block of cameras alone, as JAX's does, and
+    on identical cameras its statistics are the whole batch's."""
+    from ocrfdet_tpu_torch import entry
+    N = cfg.data.num_cams
+    out = []
+    for seed in range(2):
+        b = entry.make_batch(cfg, seed=seed, batch_size=2, device=dev,
+                             with_targets=True)
+        for k, v in b.items():
+            if not torch.is_tensor(v) or k in ("gt_boxes", "kd_pair"):
+                continue
+            if v.dim() >= 3 and v.shape[2] == N:
+                b[k] = v[:, :, :1].expand_as(v).contiguous()
+            elif v.dim() >= 2 and v.shape[1] == N:
+                b[k] = v[:, :1].expand_as(v).contiguous()
+        b["render_cam"] = torch.zeros_like(b["render_cam"])
+        out.append(b)
+    return out
+
+
+def _recording_grads(state):
+    """Record the gradients `state`'s optimizer is given (averaged over
+    the grid, before the clip)."""
+    got = {}
+    update = state.optimizer.update
+
+    def record(grads, count):
+        got["grads"] = [g.detach().clone() for g in grads]
+        return update(grads, count)
+    state.optimizer.update = record
+    return got
+
+
+def probe_grads(model, batch):
+    """The gradients of a fixed random linear functional of the eval
+    forward's outputs (every head and the aux maps; normal weights from
+    seed 31 on the model's device) with respect to the model's
+    parameters: the backward of every kernel and collective of the eval
+    path, where eval-mode BatchNorm keeps the function smooth. Returns
+    (names, gradients; zeros where a parameter gets none)."""
+    params = dict(model.named_parameters())
+    preds, aux = model(batch)
+    gen = torch.Generator(device=aux["depth"].device).manual_seed(31)
+    terms = [v for t in preds for v in t.values()] + [
+        aux[k] for k in ("depth", "semantic", "bev_mask_logit",
+                         "opacity_bev_logit")]
+    loss = sum((t.float() * torch.randn(t.shape, generator=gen,
+                                        device=t.device)).sum()
+               for t in terms)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return list(params), [torch.zeros_like(p) if g is None else g
+                          for p, g in zip(params.values(), grads)]
+
+
+def _tol_ratio(got, want, rtol, atol):
+    """(max |got - want|, max |want|, the elements beyond atol + rtol
+    |want|, the largest |got - want| / (atol + rtol |want|))."""
+    got, want = got.detach(), want.detach()
+    diff = (got - want).abs()
+    ratio = diff / (atol + rtol * want.abs())
+    return (float(diff.max()), float(want.abs().max()),
+            int((ratio > 1).sum()), float(ratio.max()))
+
+
+def replay_kernels(recorded, dev):
+    """Each recorded kernel input through the wrapper (its kernels) and
+    through its plain version: the forward, and the backward of random
+    cotangents with respect to the inputs that required grad, within
+    REPLAY_TOL (K5: its image and log-transmittance; the median depth may
+    flip where T crosses 0.5 within rounding, at most 1 pixel in 10^4).
+    Returns {kernel name: max |kernel - plain|}; raises beyond the
+    tolerance, naming every output and gradient that is beyond it."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    errs, bad = {}, []
+    for key, (mod, attr, plain) in _kernel_entries().items():
+        args, req = recorded[key]
+        runs = []
+        for fn in (getattr(mod, attr), plain):
+            a = [t.detach().clone().requires_grad_(r) if torch.is_tensor(t)
+                 else t for t, r in zip(args, req)]
+            out = fn(*a)
+            runs.append((a, list(out) if isinstance(out, tuple) else [out]))
+        (ka, kout), (pa, pout) = runs
+        (rtol, atol, rel), bwd_tol = REPLAY_TOL[key]
+        fwd_name, bwd_name = WRAPPER_KERNELS[key]
+        shapes = [tuple(t.shape) for t in args if torch.is_tensor(t)]
+        checks = []
+        for i in ([0, 2] if key == "K5" else range(len(kout))):
+            scale = float(pout[i].detach().abs().max()) if rel else 1.0
+            checks.append((fwd_name, f"output {i}", _tol_ratio(
+                kout[i], pout[i], rtol, atol * scale)))
+        if key == "K5":
+            flips = int((kout[1] - pout[1]).detach().abs().gt(
+                1e-5 * pout[1].detach().abs()).sum())
+            if flips > kout[1].numel() // 10000:
+                bad.append(f"{fwd_name} median depth: {flips} flips")
+        if bwd_name is not None:
+            outs = [i for i, o in enumerate(kout) if o.requires_grad]
+            cots = [torch.randn(kout[i].shape, generator=gen, device=dev)
+                    for i in outs]
+            wrt = [i for i, r in enumerate(req) if r]
+            dk = torch.autograd.grad([kout[i] for i in outs],
+                                     [ka[i] for i in wrt], cots)
+            dp = torch.autograd.grad([pout[i] for i in outs],
+                                     [pa[i] for i in wrt], cots)
+            for i, x, y in zip(wrt, dk, dp):
+                scale = float(y.abs().max())
+                checks.append((bwd_name, f"d argument {i}", _tol_ratio(
+                    x, y, bwd_tol[0], bwd_tol[1] * scale)))
+        for name, what, (err, scale, n_bad, ratio) in checks:
+            errs[name] = max(errs.get(name, 0.0), err)
+            if n_bad:
+                bad.append(f"{name} {what} on {shapes}: max |diff| {err:.3e}"
+                           f" of {scale:.3e}, {n_bad} elements beyond the "
+                           f"tolerance, at most {ratio:.2f} x it")
+    if bad:
+        raise AssertionError("[space] kernels vs plain: " + "; ".join(bad))
+    errs["point_sample_order"] = errs["point_sample_bwd"]
+    return errs
+
+
+def _update_gap(model, want, cfg, step):
+    """The largest |p - want| over the parameters, less two roundings of
+    |want|, in learning rates of the update at `step` (the render MLPs'
+    times their multiplier): AdamW moves an entry by about one learning
+    rate, in either direction where the two gradients' signs differ."""
+    from ocrfdet_tpu_torch.train import optim
+    lr = optim.lr_at(cfg, step)
+    worst = 0.0
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            w = want[n].to(p.device)
+            k_lr = lr * (cfg.lr_mult_render if optim.is_render_param(n)
+                         else 1.0)
+            gap = ((p - w).abs() - 2 * torch.finfo(torch.float32).eps
+                   * w.abs()) / k_lr
+            worst = max(worst, float(gap.max()))
+    return worst
+
+
+def _reset(kernel_list):
+    for k in kernel_list:
+        k.launches = 0
+
+
+def _launches(kernel_list, want, where):
+    got = {k.name: k.launches for k in kernel_list}
+    want = {k.name: want.get(k.name, 0) for k in kernel_list}
+    if got != want:
+        raise AssertionError(f"[space] {where}: launches {got}, expected "
+                             f"{want}")
+    return got
+
+
+def space_rank(work_dir: str) -> int:
+    """One rank of the [space] phase, `python3 chip_smoke.py --space-rank
+    DIR` under torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT), which `check_space`
+    sets: the process grid data 1 x space 2 on the one card (gloo, as
+    `init_data_mesh` picks where ranks share a card); the fp32 eval
+    request (rank 0 writes its outputs), the bf16 eval window, then
+    SPACE_STEPS training steps under `deterministic_step` on the
+    camera-0 batches, each from the single device's state before it
+    (DIR/model<i>.pt; rank 0 writes the averaged gradients of each, and
+    each rank measures its parameters after the update against the
+    single device's), every kernel's launches counted for each request
+    and step, and each
+    kernel against its plain version on the inputs it was given in the
+    first step. Writes DIR/rank<r>.json."""
+    import torch.distributed as dist
+
+    from ocrfdet_tpu_torch import entry
+    from ocrfdet_tpu_torch.bench_train import percentile
+    from ocrfdet_tpu_torch.parallel import collectives as col
+    from ocrfdet_tpu_torch.parallel import mesh as pmesh
+    from ocrfdet_tpu_torch.parallel import step as pstep
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work_dir = Path(work_dir)
+    _, kernel_list = _kernel_lists()
+    eval_want = {"cost_volume": 2, "bev_pool": 2, "ht_pool": 2,
+                 "point_sample": 2}
+    t0 = time.perf_counter()
+    mesh = pmesh.init_data_mesh(1, space=SPACE)
+    dev = mesh.device
+    if (mesh.backend, mesh.data, mesh.space) != ("gloo", 1, SPACE):
+        raise AssertionError(f"[space] mesh {mesh}")
+    rep = dict(rank=mesh.rank, s=mesh.s, backend=mesh.backend,
+               device=str(dev), init_s=time.perf_counter() - t0)
+    cfg32, cfg_bf, cfg_t = _space_configs(SPACE)
+    try:
+        # the fp32 request
+        model = entry.build_detector(cfg32, dev, seed=0)
+        model.set_space(mesh.space_axis)
+        batch = entry.make_batch(cfg32, seed=0, device=dev)
+        _reset(kernel_list)
+        preds, aux, _, _ = entry.infer(model, batch)
+        rep["eval_launches"] = _launches(kernel_list, eval_want,
+                                         "the fp32 request")
+        # the probe's gradients, averaged over the grid as the step
+        # averages them
+        _, grads = probe_grads(model, batch)
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=mesh.grid)
+        flat /= mesh.data * mesh.space
+        if mesh.rank == 0:
+            torch.save(dict(preds=[{k: v.cpu() for k, v in t.items()}
+                                   for t in preds],
+                            aux={k: v.cpu() for k, v in aux.items()},
+                            probe=[p.cpu() for p in flat.split(
+                                [g.numel() for g in grads])]),
+                       work_dir / "eval.pt")
+        del grads, flat
+        # the bf16 window
+        del model, preds, aux
+        model = entry.build_detector(cfg_bf, dev, seed=0)
+        model.set_space(mesh.space_axis)
+        batches = [entry.make_batch(cfg_bf, seed=s, device=dev)
+                   for s in range(4)]
+        for i in range(3):
+            entry.infer(model, batches[i % 4])
+        _reset(kernel_list)
+        wall = []
+        for i in range(SPACE_REQUESTS):
+            t = time.perf_counter()
+            entry.infer(model, batches[i % 4])
+            wall.append(time.perf_counter() - t)
+        _launches(kernel_list, {k: v * SPACE_REQUESTS
+                                for k, v in eval_want.items()},
+                  "the bf16 window")
+        rep["bf16_ms"] = [percentile(wall, 50) * 1e3,
+                          percentile(wall, 90) * 1e3]
+        del model, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the training steps
+        state = pstep.build_trainer(cfg_t, mesh, seed=0)
+        batches = _camera0_batches(cfg_t, dev)
+        grads = _recording_grads(state)
+        steps = []
+        with deterministic_step():
+            for i in range(SPACE_STEPS):
+                if i:       # each step from the single device's state
+                    state.model.load_state_dict(torch.load(
+                        work_dir / f"model{i}.pt", map_location=dev))
+                _reset(kernel_list)
+                col.STATS.clear()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with (recording_kernel_inputs() if i == 0
+                      else contextlib.nullcontext({})) as recorded:
+                    metrics = entry.train_step(state, batches[i % 2])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                if i == 0:
+                    inputs = recorded
+                steps.append(dict(
+                    ms=ms, metrics=metrics,
+                    launches=_launches(kernel_list, PER_STEP, f"step {i}"),
+                    update_gap=_update_gap(state.model, torch.load(
+                        work_dir / f"model{i + 1}.pt"), cfg_t.optim, i),
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    collectives={k: list(v) for k, v in col.STATS.items()}))
+                if mesh.rank == 0:
+                    torch.save([g.cpu() for g in grads["grads"]],
+                               work_dir / f"grads{i}.pt")
+        rep["steps"] = steps
+        rep["k5_rows"] = inputs["K5"][0][1:]
+        del state, batches, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        rep["replay_err"] = replay_kernels(inputs, dev)
+    finally:
+        pmesh.release()
+    with open(work_dir / f"rank{mesh.rank}.json", "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def _pooled(want, got, names):
+    """JAX's gradient metric (tests/test_parallel.py) per top-level
+    module, the render heads apart: the least-squares scale of `got` on
+    `want`, sum(a.b) / sum(a.a), and their cosine."""
+    from ocrfdet_tpu_torch.train import optim
+    groups = {}
+    for n, a, b in zip(names, want, got):
+        top = n.split(".")[0] + (" (render heads)"
+                                 if optim.is_render_param(n) else "")
+        a, b = a.double().ravel(), b.double().ravel()
+        ab, aa, bb = groups.get(top, (0.0, 0.0, 0.0))
+        groups[top] = (ab + float(a @ b), aa + float(a @ a),
+                       bb + float(b @ b))
+    return {top: (ab / aa, ab / max(np.sqrt(aa * bb), 1e-300))
+            for top, (ab, aa, bb) in groups.items() if aa > 1e-20}
+
+
+def _run_ranks(work_dir: Path, timeout: float):
+    """Start the SPACE ranks (`space_rank`) and wait for all of them; if
+    one fails, end the others and raise with its log's tail."""
+    port = str(_free_port())
+    procs = []
+    for r in range(SPACE):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(SPACE), LOCAL_WORLD_SIZE=str(SPACE),
+                   MASTER_ADDR="localhost", MASTER_PORT=port)
+        log_file = open(work_dir / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--space-rank",
+             str(work_dir)], env=env, stdout=log_file,
+            stderr=subprocess.STDOUT), log_file))
+    deadline = time.perf_counter() + timeout
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            failed = [r for r, (p, _) in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() > deadline:
+                r = failed[0] if failed else 0
+                tail = (work_dir / f"rank{r}.log").read_text()[-6000:]
+                raise AssertionError(
+                    f"[space] rank {r} "
+                    + (f"exited {procs[r][0].returncode}" if failed
+                       else f"still running after {timeout:.0f} s")
+                    + f":\n{tail}")
+            time.sleep(0.5)
+        for r, (p, _) in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"[space] rank {r} exited {p.returncode}:\n"
+                    + (work_dir / f"rank{r}.log").read_text()[-6000:])
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+
+
+def check_space(dev, kernel_list, smi, timeout=600.0):
+    """[space]: the `space` axis (parallel/{mesh,collectives,halo}.py, the
+    detector's camera blocks, BEV row blocks and render bands) on the
+    one card: 2 ranks (`space_rank`, gloo: NCCL refuses two ranks on one
+    device) against the single-device port in this process, on the same
+    seeded weights and batches.
+      * the fp32 eval request (`ocrfdet_config(batch_size=1)` in fp32):
+        every head and the aux maps of rank 0 against this process's,
+        and the gradients of a fixed functional of them (`probe_grads`,
+        the eval path's backward through every kernel and collective,
+        averaged over the grid) by JAX's metric per module (the
+        factor-1 convention: a gradient counted once per rank reads
+        scale 2);
+      * SPACE_STEPS fp32 training steps at batch 2 under
+        `deterministic_step` on the camera-0 batches
+        (`_camera0_batches`), each step of the ranks from the single
+        device's state before it: the losses' largest relative
+        difference and the averaged gradients by JAX's metric
+        (`_pooled` per top-level module: the largest |1 - scale| and 1 -
+        cosine, tests/test_parallel.py::test_deep_camera_sharding_raw_
+        gradients_match) each within 4 times the floor, the single
+        device's distance from itself on the batch with its images moved
+        by one rounding up and down (this train-mode step amplifies
+        rounding: PERF.md); the parameters after the update within 2.5
+        learning rates of the single device's (`_update_gap`);
+      * each rank's launches (2 of each of K1-K4 a request, PER_STEP a
+        step), every kernel against its plain version on the inputs a
+        rank gave it, step ms, peak memory, the collectives' counts and
+        bytes, and 20 bf16 requests' median and p90 on the pair and on
+        the single device (recorded only: the two ranks share the card).
+    Returns {kernel name: dict(launches_space=its launches on rank 0 over
+    the steps, max_abs_err_space=its largest error over the ranks)}."""
+    import shutil
+    import tempfile
+
+    from ocrfdet_tpu_torch import entry, kernels
+    from ocrfdet_tpu_torch.bench_train import percentile
+
+    cfg32, cfg_bf, cfg_t = _space_configs(1)
+    t0 = time.perf_counter()
+    work_dir = Path(tempfile.mkdtemp(dir=kernels.BUILD_DIR,
+                                     prefix="space_"))
+    try:
+        # the single device
+        model = entry.build_detector(cfg32, dev, seed=0)
+        batch = entry.make_batch(cfg32, seed=0, device=dev)
+        preds, aux, _, _ = entry.infer(model, batch)
+        probe_names, probe = probe_grads(model, batch)
+        ref = dict(preds=[{k: v.cpu() for k, v in t.items()}
+                          for t in preds],
+                   aux={k: v.cpu() for k, v in aux.items()},
+                   probe=[g.cpu() for g in probe])
+        del model, preds, aux, probe
+        model = entry.build_detector(cfg_bf, dev, seed=0)
+        batches = [entry.make_batch(cfg_bf, seed=s, device=dev)
+                   for s in range(4)]
+        for i in range(3):
+            entry.infer(model, batches[i % 4])
+        wall = []
+        for i in range(SPACE_REQUESTS):
+            t = time.perf_counter()
+            entry.infer(model, batches[i % 4])
+            wall.append(time.perf_counter() - t)
+        one_ms = [percentile(wall, 50) * 1e3, percentile(wall, 90) * 1e3]
+        del model, batches
+        # the single device, and beside it from the same state before
+        # each step the single device on the batch with every image
+        # pixel moved by one rounding, up and down (the floor: how far
+        # rounding alone moves this train-mode step)
+        state = entry.build_trainer(cfg_t, dev, seed=0)
+        floor = entry.build_trainer(cfg_t, dev, seed=0)
+        names = state.optimizer.names["render"] + state.optimizer.names[
+            "other"]
+        batches = _camera0_batches(cfg_t, dev)
+        grads, floor_grads = _recording_grads(state), _recording_grads(floor)
+        ref_steps = []
+        torch.cuda.reset_peak_memory_stats()
+        with deterministic_step():
+            for i in range(SPACE_STEPS):
+                b = batches[i % 2]
+                floors = []
+                for eps in (2.0 ** -23, -2.0 ** -23):
+                    floor.model.load_state_dict(state.model.state_dict())
+                    floor.step = state.step
+                    m = entry.train_step(floor, dict(b, imgs=b["imgs"]
+                                                     * (1 + eps)))
+                    floors.append((m, [g.cpu() for g in
+                                       floor_grads["grads"]]))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                metrics = entry.train_step(state, b)
+                torch.cuda.synchronize()
+                ref_steps.append(dict(
+                    ms=(time.perf_counter() - t) * 1e3, metrics=metrics,
+                    grads=[g.cpu() for g in grads["grads"]], floors=floors))
+                torch.save({k: v.cpu() for k, v in
+                            state.model.state_dict().items()},
+                           work_dir / f"model{i + 1}.pt")
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        del state, floor, batches, grads, floor_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[space] the single device: the fp32 request, {SPACE_REQUESTS}"
+            f" bf16 requests (median {one_ms[0]:.3f} ms, p90 "
+            f"{one_ms[1]:.3f}), {SPACE_STEPS} steps on the camera-0 "
+            f"batches (ms " + ", ".join(f"{s['ms']:.1f}" for s in ref_steps)
+            + f"; peak memory {one_peak:.2f} GB with the floor's second "
+            f"trainer) in {time.perf_counter() - t0:.1f} s")
+
+        # the two ranks
+        t = time.perf_counter()
+        _run_ranks(work_dir, timeout)
+        reps = [json.loads((work_dir / f"rank{r}.json").read_text())
+                for r in range(SPACE)]
+        log(f"[space] {SPACE} ranks of the data 1 x space {SPACE} grid on "
+            + ", ".join(f"{r['device']} (rank {r['rank']}, s {r['s']})"
+                        for r in reps)
+            + f" over {reps[0]['backend']} (NCCL refuses two ranks on one "
+            f"device) ran in {time.perf_counter() - t:.1f} s; process group "
+            f"up in " + ", ".join(f"{r['init_s']:.1f}" for r in reps) + " s")
+
+        # the fp32 request
+        got = torch.load(work_dir / "eval.pt")
+        errs = {}
+        for t_ref, t_got in zip(ref["preds"], got["preds"]):
+            for k, v in t_ref.items():
+                errs[f"{k}/{len(errs)}"] = (
+                    float((t_got[k] - v).abs().max()), float(v.abs().max()))
+        for k in ("depth", "semantic", "bev_mask_logit",
+                  "opacity_bev_logit"):
+            v = ref["aux"][k]
+            if tuple(got["aux"][k].shape) != tuple(v.shape):
+                raise AssertionError(f"[space] aux {k} shape "
+                                     f"{tuple(got['aux'][k].shape)}")
+            errs[k] = (float((got["aux"][k] - v).abs().max()),
+                       float(v.abs().max()))
+        # tolerance: summation order only (the camera sums add two
+        # blocks, the BatchNorm-free eval stack sees the same rows):
+        # phase 5's kernels-vs-plain bound, 1e-3 of max(1, scale), the
+        # depth probabilities 1e-5
+        bad = {k: e for k, e in errs.items()
+               if e[0] > (1e-5 if k == "depth" else 1e-3 * max(1.0, e[1]))}
+        worst = max(errs.items(), key=lambda kv: kv[1][0] / max(1.0,
+                                                                 kv[1][1]))
+        log(f"[space] fp32 request, rank 0 vs the single device: "
+            f"{len(errs)} outputs, largest |diff| / max(1, scale) "
+            f"{worst[1][0] / max(1.0, worst[1][1]):.3e} ({worst[0]}: "
+            f"{worst[1][0]:.3e} of {worst[1][1]:.3f}); depth "
+            f"{errs['depth'][0]:.3e}; launches a rank "
+            + json.dumps(reps[0]["eval_launches"]) + ", "
+            + json.dumps(reps[1]["eval_launches"]))
+        if bad:
+            raise AssertionError(f"[space] the fp32 request differs: {bad}")
+        # the probe's gradients (the eval path's backward, averaged over
+        # the grid): JAX's metric by module; a gradient counted once per
+        # rank would read scale 2. Tolerance: |1 - scale| 2e-3, 1 -
+        # cosine 1e-4 (other summation orders only; measured 2.2e-4 and
+        # 2.1e-6)
+        pooled = _pooled(ref["probe"], got["probe"], probe_names)
+        dev_scale = max(abs(1 - s) for s, _ in pooled.values())
+        dev_cos = max(1 - c for _, c in pooled.values())
+        log(f"[space] the probe's gradients (a fixed random functional of "
+            f"the fp32 request's heads and maps, every parameter), rank "
+            f"0's grid mean vs the single device: {len(pooled)} modules, "
+            f"largest |1 - scale| {dev_scale:.3e}, 1 - cosine "
+            f"{dev_cos:.3e}")
+        if len(pooled) < 8 or dev_scale > 2e-3 or dev_cos > 1e-4:
+            raise AssertionError(f"[space] the probe's gradients differ: "
+                                 + json.dumps(pooled))
+
+        # the training steps: the losses and the averaged gradients of
+        # rank 0 against the single device's, each within 4 times the
+        # floor's distance, and the parameters after the update within
+        # 2.5 learning rates
+        def loss_rel(m, ref):
+            return max(abs(m[k] - v) / max(abs(v), 1e-6)
+                       for k, v in ref.items())
+
+        def grad_dev(pooled):
+            return (max(abs(1 - s) for s, _ in pooled.values()),
+                    max(1 - c for _, c in pooled.values()))
+        for i, r in enumerate(ref_steps):
+            sharded = torch.load(work_dir / f"grads{i}.pt")
+            m0, m1 = reps[0]["steps"][i]["metrics"], reps[1]["steps"][i][
+                "metrics"]
+            if m0 != m1:
+                raise AssertionError(f"[space] step {i}: the ranks report "
+                                     f"different losses")
+            pooled = _pooled(r["grads"], sharded, names)
+            off = (loss_rel(m0, r["metrics"]), *grad_dev(pooled))
+            base = tuple(np.max([(loss_rel(m, r["metrics"]), *grad_dev(
+                _pooled(r["grads"], g, names))) for m, g in r["floors"]],
+                axis=0))
+            gap = max(rep["steps"][i]["update_gap"] for rep in reps)
+            log(f"[space] step {i}: rank 0 against the single device "
+                f"(in brackets the floor: the single device on its images "
+                f"moved by one rounding, against it): losses' largest"
+                f" relative diff {off[0]:.3e} ({base[0]:.3e}); averaged "
+                f"gradients by module ({len(pooled)}), largest |1 - scale| "
+                f"{off[1]:.3e} ({base[1]:.3e}), 1 - cosine {off[2]:.3e} "
+                f"({base[2]:.3e}); loss_total {m0['loss_total']!r} against "
+                f"{r['metrics']['loss_total']!r}; the parameters after the "
+                f"update within {gap:.3f} learning rates")
+            if any(o > 4 * max(b, 1e-6) for o, b in zip(off, base)) \
+                    or gap > 2.5:
+                raise AssertionError(
+                    f"[space] step {i} differs from the single device by "
+                    f"more than 4 x the floor: {off} against {base}, update "
+                    f"{gap:.3f} learning rates; by module " + json.dumps(
+                        pooled))
+        for rep in reps:
+            steps = rep["steps"]
+            coll = steps[-1]["collectives"]
+            log(f"[space] rank {rep['rank']}: step ms " + ", ".join(
+                f"{s['ms']:.1f}" for s in steps) + " (single device "
+                + ", ".join(f"{s['ms']:.1f}" for s in ref_steps)
+                + f"); peak memory {max(s['peak_gb'] for s in steps):.2f} "
+                f"GB; launches a step {json.dumps(steps[-1]['launches'])}; "
+                f"collectives a step (count, MB): " + ", ".join(
+                    f"{k} {n} {b / 1e6:.2f}" for k, (n, b) in
+                    sorted(coll.items()))
+                + f"; K5's tiles and tile columns {rep['k5_rows'][:2]}; "
+                f"kernels vs plain on its inputs max_abs_err "
+                + json.dumps({k: float(f"{v:.3e}") for k, v in
+                              rep["replay_err"].items()}))
+        log(f"[space] {SPACE_REQUESTS} bf16 requests (batch 1): the pair "
+            f"median {reps[0]['bf16_ms'][0]:.3f} ms p90 "
+            f"{reps[0]['bf16_ms'][1]:.3f} (rank 0), the single device "
+            f"median {one_ms[0]:.3f} p90 {one_ms[1]:.3f}; recorded only, "
+            f"the ranks share the card; nvidia-smi: {smi}")
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {k.name: dict(
+        launches_space=sum(s["launches"][k.name] for s in reps[0]["steps"]),
+        max_abs_err_space=max(r["replay_err"][k.name] for r in reps))
+        for k in kernel_list}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2385,7 +3054,6 @@ def main() -> int:
     from ocrfdet_tpu_torch.ops import ht_pool as htp
     from ocrfdet_tpu_torch.ops import nms
     from ocrfdet_tpu_torch.ops import point_sample as ps
-    from ocrfdet_tpu_torch.ops.splat import composite as ct
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2401,12 +3069,9 @@ def main() -> int:
         f"cuDNN and matmul (fp32 comparisons)")
 
     t = time.perf_counter()
-    # the nine kernel functions, and K4's backward binning
-    kernel_list = [cvm.KERNEL, bp.KERNEL, bp.BWD_KERNEL, htp.KERNEL,
-                   htp.BWD_KERNEL, ps.KERNEL, ps.BWD_KERNEL, ct.KERNEL,
-                   ct.BWD_KERNEL, ps.ORDER_KERNEL]
-    # launch counts are also checked for K3's backward ordering
-    checked = kernel_list + [htp.ORDER_KERNEL]
+    # the nine kernel functions and K4's backward binning; launch counts
+    # are also checked for K3's backward ordering
+    kernel_list, checked = _kernel_lists()
     kernels.build(checked + [cvm.ROW_LOADS_KERNEL])
     nms.native_library()
     sources = sorted({k.source for k in kernel_list})
@@ -2434,15 +3099,11 @@ def main() -> int:
     # per training step: K1 and each forward of K2-K4 once per temporal
     # frame, their backwards (K3's with its ordering, K4's with its
     # binning) and K5 once (the key frame)
-    per_step = {"cost_volume": 2, "bev_pool": 2, "ht_pool": 2,
-                "point_sample": 2, "bev_pool_bwd": 1, "ht_pool_bwd": 1,
-                "ht_pool_order": 1, "point_sample_bwd": 1,
-                "point_sample_order": 1, "composite_tiles": 1,
-                "composite_tiles_bwd": 1}
+    per_step = PER_STEP
     launches, recorded = check_training(dev, checked, per_step)
     torch.cuda.empty_cache()
     stats["composite_tiles"], stats["composite_tiles_bwd"] = check_k5(
-        recorded["attrs"], recorded["dims"][0], recorded["dims"][1])
+        *recorded["K5"][0][:3])
     del recorded
     torch.cuda.empty_cache()
     check_fp32_step(dev, checked)
@@ -2471,6 +3132,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_export(dev, checked, eval_kernels, smi)
     check_ddp(dev, checked, per_step, smi)
+    space = check_space(dev, kernel_list, smi)
 
     rows = []
     for k in kernel_list:
@@ -2485,7 +3147,7 @@ def main() -> int:
         rows.append(dict(name=k.name, route="cuda",
                          source=f"ocrfdet_tpu_torch/csrc/{k.source}",
                          replaces=k.replaces, launches=launches[k.name],
-                         **st))
+                         **st, **space[k.name]))
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
@@ -2496,4 +3158,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--space-rank"]:
+        sys.exit(space_rank(sys.argv[2]))
     sys.exit(main())

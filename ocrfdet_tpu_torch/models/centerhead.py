@@ -1,14 +1,18 @@
 """CenterPoint-style detection head (counterpart of
 ocrfdet_tpu/models/centerhead.py): a shared 3x3 ConvBN then, per task,
 small conv towers for (reg 2, height 1, dim 3, rot 2, vel 2, heatmap K_t).
+With a halo spec (the `space` axis, parallel/halo.py) x is this rank's
+block of the BEV grid's rows and every 3x3 conv takes 1-row halos.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import CenterHeadConfig
+from ..parallel.halo import halo_exchange_rows
 from .resnet import ConvBN
 
 
@@ -31,13 +35,19 @@ class SeparateHead(nn.Module):
             setattr(self, f"{name}_out", out)
         self.num_convs = num_convs
 
-    def forward(self, x) -> Dict[str, object]:
+    def forward(self, x, halo=None) -> Dict[str, object]:
         out = {}
         for name, _ in self.heads:
             y = x
             for i in range(self.num_convs - 1):
-                y = getattr(self, f"{name}_conv{i}")(y)
-            out[name] = getattr(self, f"{name}_out")(y)
+                y = getattr(self, f"{name}_conv{i}")(y, halo)
+            conv = getattr(self, f"{name}_out")
+            p = conv.padding[1]
+            if halo is not None and p:
+                out[name] = F.conv2d(halo_exchange_rows(y, halo, p, p),
+                                     conv.weight, conv.bias, 1, (0, p))
+            else:
+                out[name] = conv(y)
         return out
 
 
@@ -52,10 +62,10 @@ class CenterHead(nn.Module):
                 cfg.share_conv_channel, heads, cfg.head_conv_channel,
                 cfg.final_kernel, cfg.init_bias, cfg.num_head_convs))
 
-    def forward(self, x) -> List[Dict[str, object]]:
+    def forward(self, x, halo=None) -> List[Dict[str, object]]:
         """x [B, C, H, W]. Returns one dict per task of channel-last
         [B, H, W, ch] maps; heatmap is raw logits."""
-        x = self.shared_conv(x)
+        x = self.shared_conv(x, halo)
         return [{k: v.permute(0, 2, 3, 1)
-                 for k, v in getattr(self, f"task{t}")(x).items()}
+                 for k, v in getattr(self, f"task{t}")(x, halo).items()}
                 for t in range(len(self.cfg.tasks))]

@@ -23,6 +23,27 @@ in `cfg.compute_dtype` under autocast; geometry, the cost volume, the
 depth softmax, the splat, the HT pool and the point sampling run in
 fp32.
 
+The `space` axis (`set_space`, an Axis of parallel/collectives.py that
+`parallel/step.py` and `train/evaluate.py` give the model of a space
+rank; JAX's ParallelConfig phases, active only when the model has an
+axis of `cfg.parallel.space_axis` ranks):
+  * `shard_cameras`: each rank runs the image backbone and FPN on its
+    block of N / S cameras; without `shard_vt` their features are
+    gathered (`all_gather_cat`) and the view transformer runs on every
+    camera;
+  * `shard_vt` (with `shard_cameras`): the view transformer runs on the
+    rank's cameras (their `mlp_input`, `k2s_sensor` and K1 cost volume)
+    and sums over the axis (models/ocrf/view_transformer_ocrf.py); the
+    key frame's depth, semantic and FPN features are gathered for the
+    losses;
+  * `shard_bev`: the BEV grid's rows split into blocks from the view
+    transformer's output (`slice_rows`) through the pre-process, the BEV
+    encoder and the CenterHead (1-row halos, parallel/halo.py), and the
+    predictions are gathered; off where the rows do not split into
+    blocks divisible by 2^(stride-2 stages), as in JAX;
+  * `shard_render` (with `shard_vt`): the splat render in row bands.
+Every rank returns the whole predictions and aux maps.
+
 In train mode (`model.train()`) BatchNorm normalises with batch
 statistics and moves its running statistics (flax's update, models/
 norm.py) in every frame, the ASPP applies dropout, the image backbone's
@@ -42,6 +63,8 @@ import torch.nn.functional as F
 from ..config import OcRFDetConfig
 from ..geometry.transforms import camera_mlp_input
 from ..ops.cost_volume import stereo_cost_volume
+from ..parallel.collectives import Axis, all_gather_cat
+from ..parallel.halo import slice_rows
 from .centerhead import CenterHead
 from .fpn import CustomFPN, FPN_LSS
 from .resnet import CustomResNet, ResNet
@@ -51,13 +74,12 @@ from .view_transformer import (CameraParams, LSSViewTransformer,
 
 
 def check_supported(cfg: OcRFDetConfig) -> None:
-    """Raise on the parts of the config this port does not run yet."""
+    """Raise on the configs the JAX package cannot run either."""
     p = cfg.parallel
-    if p.space_axis > 1 and (p.shard_cameras or p.shard_vt or p.shard_bev
-                             or p.shard_render):
-        raise NotImplementedError(
-            "spatial sharding (parallel.space_axis > 1, the space axis) is "
-            "ROADMAP item 13b")
+    if p.space_axis > 1 and p.shard_cameras \
+            and cfg.data.num_cams % p.space_axis:
+        raise ValueError(f"shard_cameras: {cfg.data.num_cams} cameras over "
+                         f"space_axis {p.space_axis}")
     if cfg.vt.renderer not in ("dense", "xla", "pallas"):
         raise ValueError(f"vt.renderer {cfg.vt.renderer!r}: 'dense', 'xla' "
                          f"or 'pallas' expected")
@@ -95,24 +117,71 @@ class OcRFDet(nn.Module):
         self.img_bev_encoder_neck = FPN_LSS(
             chans[0] + chans[2], cfg.bev_encoder.neck_out_channels)
         self.pts_bbox_head = CenterHead(cfg.head)
+        self.space: Axis = None
+
+    def set_space(self, axis: Axis) -> None:
+        """Run as one rank of the `space` axis `axis` (None: alone)."""
+        if axis is not None and axis.size != self.cfg.parallel.space_axis:
+            raise ValueError(f"a space axis of {axis.size} ranks for "
+                             f"space_axis {self.cfg.parallel.space_axis}")
+        self.space = axis
+
+    def _camera_axis(self) -> Axis:
+        """The space axis where the cameras are sharded, else None."""
+        p = self.cfg.parallel
+        if self.space is None or not p.shard_cameras or p.space_axis == 1:
+            return None
+        return self.space
+
+    def _bev_halo(self) -> Axis:
+        """The space axis where the BEV rows are sharded, else None (also
+        where the rows do not split into blocks of even offsets at every
+        stride-2 stage)."""
+        cfg = self.cfg
+        if self.space is None or not cfg.parallel.shard_bev \
+                or cfg.parallel.space_axis == 1:
+            return None
+        S = cfg.parallel.space_axis
+        div = 2 ** sum(s == 2 for s in cfg.bev_encoder.stride)
+        if cfg.vt.bev_h % S or (cfg.vt.bev_h // S) % div:
+            return None
+        return self.space
+
+    @staticmethod
+    def _slice_cams(t, axis: Axis, dim: int = 1):
+        """This rank's block of the camera axis `dim`."""
+        n = t.shape[dim] // axis.size
+        return t.narrow(dim, axis.index * n, n)
 
     @property
     def lss(self) -> LSSViewTransformer:
         vt = self.img_view_transformer
         return vt.lss if self.cfg.with_ocrf else vt
 
-    def image_encoder(self, imgs, stem_only: bool = False):
+    def image_encoder(self, imgs, stem_only: bool = False,
+                      gather: bool = True):
         """imgs [B,N,H,W,3] -> (fpn [B,N,C,h,w] or None, stem
-        [B,N,C0,h0,w0]), NCHW."""
+        [B,N,C0,h0,w0]), NCHW. With the cameras sharded the backbone
+        runs on this rank's block; `gather` then gathers the features of
+        every camera, else they stay the block's."""
+        axis = self._camera_axis()
+        if axis is not None:
+            imgs = self._slice_cams(imgs, axis)
         B, N, H, W, C = imgs.shape
         x = imgs.reshape(B * N, H, W, C).permute(0, 3, 1, 2)
         if stem_only:
             stem = self.img_backbone(x, stem_only=True)
-            return None, stem.reshape(B, N, *stem.shape[1:])
-        feats = self.img_backbone(x)
-        fpn = self.img_neck(feats[1:])
-        return (fpn.reshape(B, N, *fpn.shape[1:]),
-                feats[0].reshape(B, N, *feats[0].shape[1:]))
+            fpn, stem = None, stem.reshape(B, N, *stem.shape[1:])
+        else:
+            feats = self.img_backbone(x)
+            fpn = self.img_neck(feats[1:])
+            fpn = fpn.reshape(B, N, *fpn.shape[1:])
+            stem = feats[0].reshape(B, N, *feats[0].shape[1:])
+        if axis is not None and gather:
+            stem = all_gather_cat(stem, axis, 1)
+            if fpn is not None:
+                fpn = all_gather_cat(fpn, axis, 1)
+        return fpn, stem
 
     def _frame_cams(self, batch, f) -> CameraParams:
         return CameraParams(
@@ -121,7 +190,7 @@ class OcRFDet(nn.Module):
             post_rots=batch["post_rots"][:, f],
             post_trans=batch["post_trans"][:, f], bda=batch["bda"])
 
-    def _cost_volume(self, stem, stem_prev, batch, cams, f):
+    def _cost_volume(self, stem, stem_prev, k2s_sensor, cams):
         """[B,N,C,h,w] stems -> softmaxed volume [B*N, D, Hc, Wc]."""
         cfg = self.cfg
         pool = cfg.vt.depthnet.cv_downsample // 4
@@ -136,7 +205,7 @@ class OcRFDet(nn.Module):
         # prev goes in as it is: the cost volume rounds it to bf16
         cv = stereo_cost_volume(
             channel_last(stem).float(), channel_last(stem_prev),
-            self.lss.cv_frustum, batch["k2s_sensor"][:, f],
+            self.lss.cv_frustum, k2s_sensor,
             cams.intrins, cams.post_rots, cams.post_trans,
             cfg.data.input_size, cfg.vt.depthnet.cost_volume_bias)
         B, N = cv.shape[:2]
@@ -148,33 +217,56 @@ class OcRFDet(nn.Module):
         if aspp is not None:
             aspp.generator = generator
 
+    def _vt_axis(self) -> Axis:
+        """The space axis where the view transformer runs on the rank's
+        cameras (`shard_vt`), else None."""
+        axis = self._camera_axis()
+        return axis if self.cfg.parallel.shard_vt else None
+
     def _frame(self, batch, f, is_key, stem_prev, key_cams, towers):
-        """One temporal frame: (bev [B,C,Y,X] after the pre-process, aux,
-        stem)."""
+        """One temporal frame: (bev [B,C,Y,X] after the pre-process, on a
+        row block where the rows are sharded; aux; stem)."""
         cfg = self.cfg
+        deep = self._vt_axis()
+
+        def local(t):       # the rank's cameras inside the VT
+            return t if deep is None else self._slice_cams(t, deep)
         with towers():
-            fpn, stem = self.image_encoder(batch["imgs"][:, f])
-        cams = self._frame_cams(batch, f)
+            fpn, stem = self.image_encoder(batch["imgs"][:, f],
+                                           gather=deep is None)
+        cams_full = self._frame_cams(batch, f)
+        cams = CameraParams(*(local(t) for t in cams_full[:5]),
+                            bda=cams_full.bda)
         mlp_input = camera_mlp_input(
-            key_cams.rots, key_cams.trans, cams.intrins, cams.post_rots,
-            cams.post_trans, batch["bda"]).float()
+            local(key_cams.rots), local(key_cams.trans), cams.intrins,
+            cams.post_rots, cams.post_trans, batch["bda"]).float()
         cv = None
         if cfg.use_stereo and stem_prev is not None:
-            cv = self._cost_volume(stem.detach(), stem_prev, batch, cams, f)
+            cv = self._cost_volume(stem.detach(), stem_prev,
+                                   local(batch["k2s_sensor"][:, f]), cams)
         if cfg.with_ocrf:
             bev, aux = self.img_view_transformer(
-                fpn, cams, mlp_input, cv, towers, batch=batch, is_key=is_key)
+                fpn, cams, mlp_input, cv, towers, batch=batch, is_key=is_key,
+                space=deep, cams_full=cams_full,
+                render_band=cfg.parallel.shard_render)
         else:
             with towers():
                 depth, semantic, context = self.img_view_transformer(
                     fpn, mlp_input, cost_volume=cv)
-            bev = self.img_view_transformer.splat(depth, context, cams) \
+            bev = self.img_view_transformer.splat(depth, context, cams, deep) \
                 .permute(0, 3, 1, 2)
             aux = dict(depth=depth, semantic=semantic)
+        halo = self._bev_halo()
+        if halo is not None:
+            bev = slice_rows(bev, halo)
         with towers():
-            bev = self.pre_process(bev)[0]
-        if is_key:          # for GeoEnhDet's distillation
-            aux["fpn_key"] = fpn
+            bev = self.pre_process(bev, halo)[0]
+        if is_key:
+            if deep is not None:    # every camera's maps for the losses
+                for k in ("depth", "semantic"):
+                    aux[k] = all_gather_cat(aux[k], deep, 1)
+                fpn = all_gather_cat(fpn, deep, 1)
+            aux["fpn_key"] = fpn    # for GeoEnhDet's distillation
         return bev, aux, stem
 
     def forward(self, batch: Dict[str, torch.Tensor]):
@@ -201,8 +293,9 @@ class OcRFDet(nn.Module):
             with torch.set_grad_enabled(is_key and torch.is_grad_enabled()):
                 if cfg.use_stereo and f == F_total - 1:
                     with towers():
-                        _, stem_prev = self.image_encoder(imgs[:, f],
-                                                          stem_only=True)
+                        _, stem_prev = self.image_encoder(
+                            imgs[:, f], stem_only=True,
+                            gather=self._vt_axis() is None)
                     stem_prev = stem_prev.detach()
                     continue
                 bev, aux, stem = self._frame(batch, f, is_key, stem_prev,
@@ -215,8 +308,12 @@ class OcRFDet(nn.Module):
             stem_prev = stem.detach()
         # channel concat, oldest..key, as the reference
         bev_cat = torch.cat(bev_feats, dim=1)
+        halo = self._bev_halo()
         with towers():
-            feats = self.img_bev_encoder_backbone(bev_cat)
-            x = self.img_bev_encoder_neck(feats[0], feats[2])
-            preds = self.pts_bbox_head(x)
+            feats = self.img_bev_encoder_backbone(bev_cat, halo)
+            x = self.img_bev_encoder_neck(feats[0], feats[2], halo)
+            preds = self.pts_bbox_head(x, halo)
+        if halo is not None:    # the rows of every rank, channel-last
+            preds = [{k: all_gather_cat(v, halo, 1) for k, v in t.items()}
+                     for t in preds]
         return preds, key_aux

@@ -6,7 +6,10 @@
     (GeoEnhDet's teacher input and aligner output);
   * `FPN_LSS`: BEV neck: bilinear-up the deepest BEV feature, concat
     with the shallow one, 2x (conv3x3+BN+ReLU), then x2 upsample +
-    conv3x3+BN+ReLU + conv1x1.
+    conv3x3+BN+ReLU + conv1x1. With a halo spec (the `space` axis,
+    parallel/halo.py) its inputs are row blocks: the upsamples are
+    `resize_cols` then `resize_rows_blocked` (bilinear is separable) and
+    the 3x3 convs take 1-row halos.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.halo import (halo_exchange_rows, resize_cols,
+                             resize_rows_blocked)
 from .norm import BatchNorm2d
 
 
@@ -74,11 +79,22 @@ class FPN_LSS(nn.Module):
         self.up_bn = BatchNorm2d(out_channels, eps=1e-5)
         self.out_conv = nn.Conv2d(out_channels, out_channels, 1)
 
-    def forward(self, x_shallow, x_deep):
-        up = resize_bilinear(x_deep, x_shallow.shape[2:])
-        x = torch.cat([x_shallow, up], dim=1)
-        x = F.relu(self.bn0(self.conv0(x)))
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = resize_bilinear(x, (x.shape[2] * 2, x.shape[3] * 2))
-        x = F.relu(self.up_bn(self.up_conv(x)))
+    def forward(self, x_shallow, x_deep, halo=None):
+        def conv_bn(x, conv, bn):
+            if halo is None:
+                return F.relu(bn(conv(x)))
+            x = F.conv2d(halo_exchange_rows(x, halo, 1, 1), conv.weight,
+                         None, 1, (0, 1))
+            return F.relu(bn(x, halo))
+
+        def up(x, hw):          # hw: this rank's rows
+            if halo is None:
+                return resize_bilinear(x, hw)
+            return resize_rows_blocked(resize_cols(x, hw[1]),
+                                       hw[0] * halo.size, halo)
+        x = torch.cat([x_shallow, up(x_deep, x_shallow.shape[2:])], dim=1)
+        x = conv_bn(x, self.conv0, self.bn0)
+        x = conv_bn(x, self.conv1, self.bn1)
+        x = up(x, (x.shape[2] * 2, x.shape[3] * 2))
+        x = conv_bn(x, self.up_conv, self.up_bn)
         return self.out_conv(x)

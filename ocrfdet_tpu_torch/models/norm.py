@@ -13,6 +13,15 @@ the batch mean and 1 / sqrt(var + eps). `BatchNorm1d`, and a
 where torch's module refuses to train, compute flax's own formula, which
 there normalises with a zero variance. In eval they are torch's.
 
+With the `space` axis (`axis`, parallel/collectives.py::Axis), a
+train-mode `BatchNorm2d` on a row block of the BEV grid sums x and x^2
+over its block in fp32, all-reduces the sums over the axis (`psum`,
+whose backward is the all-reduce of the cotangents) and normalises with
+the whole grid's statistics, flax's `BatchNorm(axis_name=...)`
+(mean = E[x], var = max(E[x^2] - mean^2, 0)); the running statistics
+move as above. Halo rows never reach a BatchNorm: the conv before it
+consumed them.
+
 `frozen_stats()` stops the update (the batch statistics still
 normalise): the recomputation of a checkpointed block in the backward
 runs under it, so that a block's statistics move once per forward, as
@@ -24,6 +33,8 @@ import contextlib
 
 import torch
 import torch.nn as nn
+
+from ..parallel.collectives import psum
 
 _update = [True]
 
@@ -52,13 +63,30 @@ def _update_running(bn, mean, var):
     bn.num_batches_tracked.add_(1)
 
 
+def _synced_batch_norm(bn, x, axis):
+    """Train-mode batch norm of x [B, C, Yl, X] with the statistics of
+    every rank's block of the axis; returns (y in x's dtype, mean, var)."""
+    xf = x.float()
+    dims = [0, 2, 3]
+    sums = psum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), axis)
+    n = x.numel() // x.shape[1] * axis.size
+    mean = sums[0] / n
+    var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+    shape = (1, -1, 1, 1)
+    y = ((xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + bn.eps)
+         * bn.weight.view(shape) + bn.bias.view(shape))
+    return y.to(x.dtype), mean, var
+
+
 class _FlaxRunningStats:
     flax_formula = False
 
-    def forward(self, x):
+    def forward(self, x, axis=None):
         if not self.training:
             return super().forward(x)
-        if self.flax_formula or x.numel() == x.shape[1]:
+        if axis is not None:
+            y, mean, var = _synced_batch_norm(self, x, axis)
+        elif self.flax_formula or x.numel() == x.shape[1]:
             # flax's formula; with one value per channel it gives exactly
             # the bias, as flax does
             dims = [d for d in range(x.dim()) if d != 1]

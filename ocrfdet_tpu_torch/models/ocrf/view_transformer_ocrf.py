@@ -25,6 +25,14 @@ Per frame:
      compositing of its full-resolution feature, and `LearnedBlend`
      mixes the two.
 
+With the `space` axis (`space`, parallel/collectives.py::Axis) the
+camera axis of x, cams, mlp_input and the cost volume is this rank's
+block: the cross-camera sums (the LSS splat, the HT pool, the voxel
+sample's sum and count) are `psum`s over the axis, the render branch
+takes every rank's FPN features and alphas (`all_gather_cat`) and the
+whole frame's cameras (`cams_full`), and with `render_band` each rank
+renders one band of the image's rows (`splat_render`).
+
 The render-only heads exist when the module is built with
 `render_heads=True` (the trainer's model); an eval model has none, as a
 JAX model initialised for eval.
@@ -62,6 +70,7 @@ from ...ops.splat.preprocess import (Gaussians2D, preprocess_gaussians,
                                      quat_scale_to_cov3d)
 from ...ops.splat.render_dense import render_gaussians_dense
 from ...ops.splat.render_tiled import render_gaussians_tiled
+from ...parallel.collectives import all_gather_cat, psum
 from ..fpn import resize_bilinear
 from ..norm import BatchNorm2d
 from ..view_transformer import CameraParams, LSSViewTransformer
@@ -158,11 +167,12 @@ class OcRFViewTransformer(nn.Module):
     def D(self) -> int:
         return self.lss.D
 
-    def ht_pool(self, depth, context, cams: CameraParams):
+    def ht_pool(self, depth, context, cams: CameraParams, space=None):
         """Height-trick branch: project the Zh points of every pillar
         into all cameras and pool depth-weighted context at the nearest
         feature pixel / bin (K3). Returns (ht [B,C,Y,X] in context's
-        dtype, uvd [B,N,Zh,Nq,3], valid [B,N,Zh,Nq])."""
+        dtype, uvd [B,N,Zh,Nq,3], valid [B,N,Zh,Nq]); with `space` the
+        pool is summed over the axis, uvd and valid stay the rank's."""
         cfg = self.cfg
         l2i, aug = FR.ego_to_image(cams.rots, cams.trans, cams.intrins,
                                    cams.post_rots, cams.post_trans, cams.bda)
@@ -171,15 +181,18 @@ class OcRFViewTransformer(nn.Module):
             (self.grid.depth[0], self.grid.depth[1]), l2i, aug,
             self.lss.input_size)
         acc = ht_pool(depth, context, uvd, valid)           # [B, Nq, C]
+        if space is not None:
+            acc = psum(acc, space)
         B, _, C = acc.shape
         ht = acc.transpose(1, 2).reshape(B, C, cfg.bev_h, cfg.bev_w)
         return ht, uvd, valid
 
     @staticmethod
-    def sample_at_voxels(maps, uvd, valid):
+    def sample_at_voxels(maps, uvd, valid, space=None):
         """Sample per-camera full-res maps [B,N,H,W,C] at the projected
         voxel points (K4) and average over the cameras that see each
-        point. Returns [B, Zh, Nq, C] f32."""
+        point. Returns [B, Zh, Nq, C] f32. With `space` the sum and the
+        count are summed over the axis before the division."""
         B, N, H, W, C = maps.shape
         Zh, Nq = uvd.shape[2], uvd.shape[3]
         px = (uvd[..., 0] * W).reshape(B, N, Zh * Nq)
@@ -188,6 +201,8 @@ class OcRFViewTransformer(nn.Module):
         vmask = valid[..., None].to(vals.dtype)
         s = (vals * vmask).sum(dim=1)
         cnt = vmask.sum(dim=1)
+        if space is not None:
+            s, cnt = psum(s, space), psum(cnt, space)
         return s / torch.clamp(cnt, min=1.0)
 
     def nerf_alphas(self, x):
@@ -208,14 +223,18 @@ class OcRFViewTransformer(nn.Module):
         return torch.cat(parts, dim=1)
 
     def forward(self, x, cams: CameraParams, mlp_input, cost_volume,
-                towers: Callable, batch=None, is_key: bool = False):
+                towers: Callable, batch=None, is_key: bool = False,
+                space=None, cams_full: CameraParams = None,
+                render_band: bool = False):
         """x [B,N,Cin,h,w] FPN features; mlp_input [B,N,27]; cost_volume
         [B*N,D,Hc,Wc] or None; towers() the autocast context of the conv
         towers; batch the request (the render branch reads imgs_wo_norm,
         render_cam and gt_depth). Returns (bev [B,C,Y,X], aux) with aux =
         depth [B,N,h,w,D], semantic [B,N,h,w,2], bev_mask_logit and
         opacity_bev_logit [B,Y,X,1], and in training for the key frame
-        the renders of `render_branch`."""
+        the renders of `render_branch`. With `space` N is this rank's
+        block of cameras, `cams_full` the frame's cameras and
+        `render_band` renders a band of rows per rank."""
         cfg = self.cfg
         ablate = cfg.ablate
         render_on = is_key and self.training and "render" not in ablate
@@ -232,9 +251,9 @@ class OcRFViewTransformer(nn.Module):
         f_context = context * img_mask.to(context.dtype)
         cdt = context.dtype                 # the towers' compute dtype
 
-        lss_feat = self.lss.splat(f_depth, f_context, cams) \
+        lss_feat = self.lss.splat(f_depth, f_context, cams, space) \
             .permute(0, 3, 1, 2)                           # [B,C,Y,X]
-        ht_feat, uvd, valid = self.ht_pool(f_depth, f_context, cams)
+        ht_feat, uvd, valid = self.ht_pool(f_depth, f_context, cams, space)
 
         # voxel lift [B,C,Y,X] -> [B,Zh,Nq,C] (fp32), BN over the heights
         ht_last = ht_feat.float().flatten(2).transpose(1, 2)   # [B,Nq,C]
@@ -256,8 +275,11 @@ class OcRFViewTransformer(nn.Module):
             maps = alphas[..., None]
             if render_on:
                 imgs_rgb = batch["imgs_wo_norm"].float() / 255.0
+                if space is not None:       # the batch holds every camera
+                    n = x.shape[1]
+                    imgs_rgb = imgs_rgb.narrow(1, space.index * n, n)
                 maps = torch.cat([maps, imgs_rgb], dim=-1)
-            sampled = self.sample_at_voxels(maps, uvd, valid)
+            sampled = self.sample_at_voxels(maps, uvd, valid, space)
             del maps
         alpha_vox = sampled[..., 0].reshape(B, Zh, Y, X)
         opac_vox = opacity.reshape(B, Zh, Y, X)
@@ -288,20 +310,30 @@ class OcRFViewTransformer(nn.Module):
             bev_mask_logit=bev_mask_logit.permute(0, 2, 3, 1),
             opacity_bev_logit=opacity_bev_logit.permute(0, 2, 3, 1))
         if render_on:
+            band = None
+            if space is not None:
+                # the render camera is any of the frame's: every rank's
+                # FPN features and alphas, and the whole frame's cameras
+                x = all_gather_cat(x, space, 1)
+                alphas = all_gather_cat(alphas, space, 1)
+                cams = cams_full
+                band = space if render_band else None
             aux.update(self.render_branch(x, cams, batch, voxel_feat,
                                           opacity, sampled[..., 1:4],
-                                          alphas, towers))
+                                          alphas, towers, band))
         return geom_feat, aux
 
     def render_branch(self, x, cams: CameraParams, batch, voxel_feat,
-                      opacity, vox_rgb, alphas, towers: Callable):
+                      opacity, vox_rgb, alphas, towers: Callable,
+                      band=None):
         """Render one camera per sample (`render_cam`) from the voxel
         Gaussians (tiled splat, K5) and by NeRF compositing, and blend
         them. vox_rgb [B,Zh,Nq,3] is the voxels' mean reprojected colour,
         alphas [B,N,H,W] the NeRF alphas. Returns the renders and their
         targets, channel-last: render_img(_g/_n) [B,H,W,3],
         render_depth(_g/_n) [B,H,W], render_gt_img [B,H,W,3],
-        render_gt_depth [B,H,W]."""
+        render_gt_depth [B,H,W]. With `band` (the `space` axis) the splat
+        render is banded (`splat_render`)."""
         cfg = self.cfg
         B = x.shape[0]
         Zh = cfg.num_height
@@ -325,7 +357,7 @@ class OcRFViewTransformer(nn.Module):
             dep_g = opac.sum().float() * x.new_zeros((B, H, W))
         else:
             img_g, dep_g = self.splat_render(g_in, color, opac, cams,
-                                             take_cam, towers)
+                                             take_cam, towers, band)
         if "nerfcomp" in cfg.ablate:           # profiling-only seam
             img_n = x.new_zeros((B, H, W, 3))
             dep_n = x.new_zeros((B, H, W))
@@ -341,9 +373,17 @@ class OcRFViewTransformer(nn.Module):
             render_gt_depth=take_cam(batch["gt_depth"]))
 
     def splat_render(self, g_in, color, opac, cams: CameraParams,
-                     take_cam: Callable, towers: Callable):
+                     take_cam: Callable, towers: Callable, band=None):
         """The voxel Gaussians rendered into each sample's chosen camera
-        (`take_cam`): (img_g [B,H,W,3], dep_g [B,H,W])."""
+        (`take_cam`): (img_g [B,H,W,3], dep_g [B,H,W]).
+
+        With `band` (the `space` axis of S ranks, and H a multiple of
+        16 S) rank s renders rows [s Hr, (s + 1) Hr) of the image, Hr =
+        H / S: the projected means move up by s Hr rows and an Hr-row
+        image is rendered, whose tiles are exactly those rows' tiles of
+        the full image (each tile composites on its own), and the bands
+        are gathered along H (`all_gather_cat`). Otherwise every rank
+        renders the whole image."""
         cfg = self.cfg
         B = g_in.shape[0]
         H, W = cfg.render_image_size
@@ -367,16 +407,25 @@ class OcRFViewTransformer(nn.Module):
                           zfar=cfg.zfar)
         cov3d = quat_scale_to_cov3d(rotation.float(), scaling.float())
         g = preprocess_gaussians(self.gauss_means, cov3d, sc)
+        if band is not None and H % (16 * band.size):
+            band = None                 # the bands must hold whole tiles
+        Hr = H if band is None else H // band.size
+        if band is not None:
+            y0 = float(band.index * Hr)
+            g = g._replace(mean2d=g.mean2d - g.mean2d.new_tensor([0.0, y0]))
         if cfg.renderer == "dense":
             # the exact compositor, one sample at a time (no tile cap)
             views = [render_gaussians_dense(
                 Gaussians2D(*(f[i] for f in g)), color[i].float(),
-                opac[i].float(), H, W) for i in range(B)]
+                opac[i].float(), Hr, W) for i in range(B)]
             img_g = torch.stack([v[0] for v in views])
             dep_g = torch.stack([v[1] for v in views])
         else:                       # "xla" or "pallas": tiled, kernel K5
             img_g, dep_g, _ = render_gaussians_tiled(g, color.float(),
-                                                     opac.float(), H, W)
+                                                     opac.float(), Hr, W)
+        if band is not None:
+            img_g = all_gather_cat(img_g, band, 1)
+            dep_g = all_gather_cat(dep_g, band, 1)
         return img_g, dep_g
 
     def nerf_render(self, x, alphas, gt_img, take_cam: Callable,

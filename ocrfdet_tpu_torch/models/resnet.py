@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.halo import conv_row_halo, halo_exchange_rows
 from .norm import BatchNorm2d, frozen_stats
 
 
@@ -33,8 +34,17 @@ class ConvBN(nn.Module):
         self.BatchNorm_0 = BatchNorm2d(features, eps=1e-5, momentum=0.1)
         self.use_relu = use_relu
 
-    def forward(self, x):
-        x = self.BatchNorm_0(self.Conv_0(x))
+    def forward(self, x, halo=None):
+        conv = self.Conv_0
+        k, stride = conv.kernel_size[0], conv.stride[0]
+        if halo is not None and k > 1:
+            if conv.dilation[0] != 1:
+                raise ValueError("row halos need dilation 1")
+            x = halo_exchange_rows(x, halo, *conv_row_halo(k, stride))
+            x = F.conv2d(x, conv.weight, None, stride, (0, conv.padding[1]))
+        else:
+            x = conv(x)
+        x = self.BatchNorm_0(x, halo)
         return F.relu(x) if self.use_relu else x
 
 
@@ -48,9 +58,9 @@ class BasicBlock(nn.Module):
         self.downsample = (ConvBN(in_ch, features, 1, stride, use_relu=False)
                            if stride != 1 or in_ch != features else None)
 
-    def forward(self, x):
-        y = self.ConvBN_1(self.ConvBN_0(x))
-        residual = x if self.downsample is None else self.downsample(x)
+    def forward(self, x, halo=None):
+        y = self.ConvBN_1(self.ConvBN_0(x, halo), halo)
+        residual = x if self.downsample is None else self.downsample(x, halo)
         return F.relu(residual + y)
 
 
@@ -161,11 +171,11 @@ class CustomResNet(nn.Module):
                 names.append(f"stage{i}_{j}")
             self.stage_names.append(names)
 
-    def forward(self, x):
+    def forward(self, x, halo=None):
         feats = []
         for i, names in enumerate(self.stage_names):
             for name in names:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, halo)
             if i in self.out_ids:
                 feats.append(x)
         return tuple(feats)

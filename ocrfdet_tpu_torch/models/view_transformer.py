@@ -3,7 +3,9 @@ ocrfdet_tpu/models/view_transformer.py).
 
 DepthNet + depth-weighted splat onto the BEV grid. The frustum is a
 config constant (a buffer); projection, voxel indexing and pooling run
-on the device. The splat goes through kernel K2 (ops/bev_pool.py).
+on the device. The splat goes through kernel K2 (ops/bev_pool.py); the
+BEV is a sum over cameras, so with the cameras sharded over the `space`
+axis each rank pools its block and `psum` adds the ranks' BEVs.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch.nn as nn
 from ..config import GridConfig, ViewTransformerConfig
 from ..geometry import frustum as FR
 from ..ops.bev_pool import bev_pool_lss
+from ..parallel.collectives import psum
 from .depthnet import DepthNet
 
 
@@ -74,8 +77,10 @@ class LSSViewTransformer(nn.Module):
             return t.reshape(B, N, t.shape[1], h, w).permute(0, 1, 3, 4, 2)
         return last(depth), last(semantic), last(context)
 
-    def splat(self, depth, context, cams: CameraParams):
-        """depth [B,N,h,w,D], context [B,N,h,w,C] -> bev [B,Y,X,C]."""
+    def splat(self, depth, context, cams: CameraParams, space=None):
+        """depth [B,N,h,w,D], context [B,N,h,w,C] -> bev [B,Y,X,C]; with
+        `space` (the cameras are this rank's block) the sum over the
+        axis."""
         grid = self.grid
         coor = FR.frustum_to_ego(self.frustum, cams.rots, cams.trans,
                                  cams.intrins, cams.post_rots,
@@ -85,5 +90,6 @@ class LSSViewTransformer(nn.Module):
         vox_idx, valid = FR.voxel_indices(
             coor, (grid.x[0], grid.y[0], grid.z[0]),
             (grid.x[2], grid.y[2], grid.z[2]), (X, Y, Z))
-        return bev_pool_lss(depth.permute(0, 1, 4, 2, 3), context, vox_idx,
-                            valid, (X, Y, Z))
+        bev = bev_pool_lss(depth.permute(0, 1, 4, 2, 3), context, vox_idx,
+                           valid, (X, Y, Z))
+        return bev if space is None else psum(bev, space)

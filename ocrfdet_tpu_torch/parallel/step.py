@@ -1,26 +1,33 @@
 """The data-parallel training state and its collectives (counterpart of
-ocrfdet_tpu/parallel/step.py, its `data` axis).
+ocrfdet_tpu/parallel/step.py, its `data` and `space` axes).
 
-A data rank runs the port's one training step (`train/step.py`) on its
-rows of the global batch, with its own dropout generator (the seed and
-the rank, as the JAX step folds the data index into its key).
+A rank at (d, s) of the grid (parallel/mesh.py) runs the port's one
+training step (`train/step.py`) on the rows of the global batch of its
+data index d, as rank s of its space group (the model's space axis,
+models/detector.py), with its own dropout generator (the seed and
+1024 d + s, as the JAX step folds its mesh indices into its key).
 `DataParallelState` supplies the step's collectives, in the JAX step's
 order:
 
-  * `mean_fn`: the loss normalisers averaged over the ranks (the counts
-    of `compute_losses` come from the targets and carry no gradient, so
-    a detached all-reduce is enough);
+  * `mean_fn`: the loss normalisers averaged over the data group only
+    (the counts of `compute_losses` come from the targets and carry no
+    gradient, so a detached all-reduce is enough; the space ranks hold
+    the same rows);
   * `all_mean_`: the gradients, the BatchNorm running statistics and the
-    reported losses averaged over the ranks (an explicit all-reduce of
-    one flat buffer each, the sum divided by the rank count): every rank
-    holds the global statistics (PARITY.md item 8), while the batch
-    statistics inside the forward stay local, as under shard_map. The
+    reported losses averaged over the grid, data x space (an explicit
+    all-reduce of one flat buffer each, the sum divided by the rank
+    count; JAX's `_pmean_both`): every rank holds the global statistics
+    (PARITY.md item 8), while the batch statistics inside the forward
+    stay local, as under shard_map. Over the space ranks this mean is
+    what makes the sharded gradient the unsharded one
+    (parallel/collectives.py). The
     non-finite guard then reads the averaged gradients and loss, so
     every rank skips together; a skipped step changes nothing (the JAX
     step still moves its EMA on a skipped step);
-  * ZeRO (`ZeroLayout`, JAX's `zero_sharding`): each rank keeps and
-    updates only its slice of AdamW's moments and of both EMAs, along
-    each tensor's first axis whose size the rank count divides; a tensor
+  * ZeRO (`ZeroLayout`, JAX's `zero_sharding`): each rank of the grid
+    keeps and updates only its slice of AdamW's moments and of both
+    EMAs, along each tensor's first axis whose size the grid's rank
+    count divides; a tensor
     with no such axis is replicated. The clip reads the whole averaged
     gradients; after AdamW, `gather_` all-gathers the new parameter
     slices on every rank.
@@ -40,6 +47,7 @@ from .. import entry
 from ..config import OcRFDetConfig
 from ..train.step import TrainState
 from ..utils.weights import init_weights
+from .collectives import count
 from .mesh import DataMesh
 from .multihost import gather_objects
 
@@ -81,6 +89,7 @@ class ZeroLayout:
             return
         flat = torch.cat([s.reshape(-1) for s, _ in pairs])
         parts = [torch.empty_like(flat) for _ in range(self.n)]
+        count("grid_all_gather", flat)
         dist.all_gather(parts, flat, group=group)
         for r, part in enumerate(parts):
             views = [self.part(f, r) for _, f in pairs]
@@ -97,8 +106,11 @@ class DataParallelState(TrainState):
     def __init__(self, cfg: OcRFDetConfig, model, mesh: DataMesh,
                  steps_per_epoch: int = 100, seed: int = 0):
         self.mesh = mesh
-        self.layout = ZeroLayout(mesh.data, mesh.rank)
-        super().__init__(cfg, model, steps_per_epoch, seed, rank=mesh.rank,
+        self.n = mesh.data * mesh.space        # the grid's ranks
+        self.layout = ZeroLayout(self.n, mesh.rank)
+        model.set_space(mesh.space_axis)
+        super().__init__(cfg, model, steps_per_epoch, seed,
+                         stream=1024 * mesh.d + mesh.s,
                          shard=self.layout.shard)
         names = dict(self.model.named_parameters())
         names.update(self.model.named_buffers())
@@ -118,19 +130,20 @@ class DataParallelState(TrainState):
 
     @torch.no_grad()
     def all_mean_(self, tensors: List[torch.Tensor]) -> None:
-        """In place: each tensor the mean of its values over the data
-        ranks (the sum of one flat buffer divided by the rank count)."""
+        """In place: each tensor the mean of its values over the grid
+        (the sum of one flat buffer divided by the rank count)."""
         flat = torch.cat([t.reshape(-1).float() for t in tensors])
-        dist.all_reduce(flat, group=self.mesh.group)
-        flat.div_(self.mesh.data)
+        count("grid_all_reduce", flat)
+        dist.all_reduce(flat, group=self.mesh.grid)
+        flat.div_(self.n)
         parts = flat.split([t.numel() for t in tensors])
         torch._foreach_copy_(tensors, [p.view(t.shape)
                                        for p, t in zip(parts, tensors)])
 
     def gather_(self, params: List[torch.Tensor]) -> None:
-        if self.mesh.data > 1:   # at one rank every slice is already here
+        if self.n > 1:   # at one rank every slice is already here
             self.layout.gather([self.layout.shard(p) for p in params],
-                               params, self.mesh.group)
+                               params, self.mesh.grid)
 
     # ------------------------------------------------------ checkpoints
     def _gathered(self, shards: Dict[str, torch.Tensor]
@@ -141,15 +154,15 @@ class DataParallelState(TrainState):
             if self.layout.axis(fulls[k].shape) is None:     # replicated
                 fulls[k].copy_(t)
         self.layout.gather(list(shards.values()), list(fulls.values()),
-                           self.mesh.group)
+                           self.mesh.grid)
         return fulls
 
     def state_dict(self) -> Dict:
         """The single-device `TrainState.state_dict()` of the whole state
         (every rank must call it: it gathers the slices), plus every
-        rank's dropout generator under "generators"; "generator" is rank
-        0's."""
-        gens = gather_objects(self.generator.get_state(), self.mesh.group)
+        rank's dropout generator under "generators", by rank of the grid;
+        "generator" is rank 0's."""
+        gens = gather_objects(self.generator.get_state(), self.mesh.grid)
         return dict(step=self.step, model=self.model.state_dict(),
                     optimizer=self._gathered(self.optimizer.state_dict()),
                     ema_params=self._gathered(self.ema_params.as_dict()),
@@ -179,8 +192,12 @@ class DataParallelState(TrainState):
 
 def build_trainer(cfg: OcRFDetConfig, mesh: DataMesh, seed: int = 0,
                   steps_per_epoch: int = 100) -> DataParallelState:
-    """`entry.build_trainer` for one data rank: the same seeded model on
-    the rank's device, in a `DataParallelState`."""
+    """`entry.build_trainer` for one rank of the grid: the same seeded
+    model on the rank's device, on the rank's space axis, in a
+    `DataParallelState`."""
+    if mesh.space != cfg.parallel.space_axis:
+        raise ValueError(f"a mesh of space {mesh.space} for "
+                         f"parallel.space_axis {cfg.parallel.space_axis}")
     model = init_weights(entry.detector_class(cfg)(cfg, render_heads=True),
                          seed).to(mesh.device)
     return DataParallelState(cfg, model, mesh, steps_per_epoch, seed)

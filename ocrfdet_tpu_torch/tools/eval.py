@@ -13,10 +13,11 @@ forward and decode on the card and Scale-NMS on the host over every
 sample once, and prints the metrics dict (mAP, NDS, the TP errors) as
 JSON; `--out` also writes the devkit-format results. Runs on the card
 unless `--device cpu` is given. With `--multihost` (one process per
-card, from `torchrun`'s environment) each of min(N, batch size) ranks
-evaluates its rows of every batch and the results are merged (the
-multi-GPU-test analog; JAX's tools_tpu/eval.py shards over its `data`
-axis the same way).
+card, from `torchrun`'s environment) each of min(N / space, batch
+size) data ranks evaluates its rows of every batch and the results are
+merged (the multi-GPU-test analog; JAX's tools_tpu/eval.py shards over
+its `data` axis the same way); a config with `parallel.space_axis` > 1
+splits each data rank's work over that many ranks, and rank 0 reports.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ def main(argv=None):
     mesh = None
     if args.multihost:
         from ..parallel.mesh import init_data_mesh, release
-        mesh = init_data_mesh(args.batch_size, device=args.device)
+        mesh = init_data_mesh(args.batch_size, device=args.device,
+                              space=cfg.parallel.space_axis)
         if not mesh.active:
             print(f"rank {mesh.rank}: idle (the data axis has {mesh.data} "
                   f"ranks for batch {args.batch_size})")
@@ -61,7 +63,7 @@ def main(argv=None):
     dataset = NuScenesDataset(cfg, args.infos, is_train=False, cbgs=False)
     loader = Loader(dataset, args.batch_size, shuffle=False,
                     drop_last=False,
-                    process_index=mesh.rank if mesh else 0,
+                    process_index=mesh.d if mesh else 0,
                     process_count=mesh.data if mesh else 1)
     model = ema_detector(cfg, torch.load(args.ckpt, map_location=device),
                          device)

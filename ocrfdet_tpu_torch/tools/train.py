@@ -8,11 +8,12 @@
       --multihost --infos ... --work-dir ...
 
 With `--multihost` (one process per card, from `torchrun`'s
-environment) the run is data-parallel over min(N, batch size) ranks
-(`parallel/`): each loads its slice of every global batch, the
-gradients are averaged, the optimizer state and the EMAs are ZeRO
-slices, and rank 0 writes the whole state; a rank past the batch size
-stays idle.
+environment) the run is data-parallel over min(N / space, batch size)
+data ranks (`parallel/`): each loads its slice of every global batch,
+and with a config's `parallel.space_axis` > 1 that many ranks split its
+cameras, BEV rows and render bands; the gradients are averaged, the
+optimizer state and the EMAs are ZeRO slices, and rank 0 writes the
+whole state; a rank past data x space stays idle.
 
 `--geoenh` trains GeoEnhDet (`geoenh_config()`, batch 4) with its frozen
 VGGT-1B teacher, whose weights are seeded random unless `--vggt-ckpt`
@@ -96,7 +97,7 @@ def main(argv=None):
             return
     dataset = NuScenesDataset(cfg, args.infos, is_train=True)
     loader = Loader(dataset, cfg.batch_size,
-                    process_index=mesh.rank if mesh else 0,
+                    process_index=mesh.d if mesh else 0,
                     process_count=mesh.data if mesh else 1)
     trainer = Trainer(cfg, args.work_dir, steps_per_epoch=len(loader),
                       device=args.device, mesh=mesh)

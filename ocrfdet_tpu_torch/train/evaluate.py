@@ -86,12 +86,15 @@ def run_eval(cfg: OcRFDetConfig, model: OcRFDet, loader,
     is used when absent (native metrics are pose-independent).
 
     With `mesh` (`parallel/mesh.py`, the multi-GPU-test analog), every
-    data rank runs this and `loader` yields the rank's rows of each
-    batch (`Loader(process_index=rank, process_count=data)`); the
-    ranks' evaluators and result JSON are gathered and merged
-    (`parallel/multihost.py`), every rank returns the metrics of all
-    the samples, and rank 0 writes the JSON."""
+    rank runs this and `loader` yields the rows of each batch of the
+    rank's data index (`Loader(process_index=d, process_count=data)`);
+    the model runs on the mesh's space axis, the data ranks' evaluators
+    and result JSON are gathered and merged (`parallel/multihost.py`),
+    every rank returns the metrics of all the samples, and rank 0
+    writes the JSON."""
     device = next(model.parameters()).device
+    if mesh is not None:
+        model.set_space(mesh.space_axis)
     evaluator = DetectionEvaluator(cfg.class_names)
     results_json = {}
     batches = loader.epoch(0)
@@ -128,7 +131,7 @@ def run_eval(cfg: OcRFDetConfig, model: OcRFDet, loader,
                             cfg.class_names, pose)]
     finally:
         batches.close()
-    if mesh is not None:
+    if mesh is not None:        # every space rank merges its data group
         from ..parallel.multihost import merge_eval_results
         evaluator, results_json = merge_eval_results(evaluator, results_json,
                                                      mesh.group)

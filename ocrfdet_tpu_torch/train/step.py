@@ -39,18 +39,19 @@ class TrainState:
     """Model (train mode), optimizer state, EMA, step count and the
     dropout generator of one training run. A data-parallel run
     (`parallel/step.py`) gives each rank its own dropout generator
-    (`rank`, as the JAX step folds the data index into its key) and
-    keeps the moments and the EMAs of each tensor's `shard` only."""
+    (`stream` 1024 d + s, as the JAX step folds its mesh indices into
+    its key) and keeps the moments and the EMAs of each tensor's `shard`
+    only."""
 
     def __init__(self, cfg: OcRFDetConfig, model: OcRFDet,
-                 steps_per_epoch: int = 100, seed: int = 0, rank: int = 0,
+                 steps_per_epoch: int = 100, seed: int = 0, stream: int = 0,
                  shard=None):
         self.cfg = cfg
         self.model = model.train()
         self.step = 0
         dev = next(model.parameters()).device
         self.generator = torch.Generator(device=dev).manual_seed(
-            seed + 17 + 1024 * rank)
+            seed + 17 + stream)
         model.set_dropout_generator(self.generator)
         self.optimizer = Optimizer(cfg.optim, model.named_parameters(),
                                    steps_per_epoch, shard=shard)

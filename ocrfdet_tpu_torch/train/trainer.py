@@ -1,7 +1,8 @@
 """Training loop: epochs, the reference's hook gates, checkpoints and the
 metrics log (counterpart of ocrfdet_tpu/train/trainer.py), on one device
-or, with a `mesh` (`parallel/mesh.py`), as one data rank of a
-data-parallel run (`parallel/step.py`'s state and collectives).
+or, with a `mesh` (`parallel/mesh.py`), as one rank of a data-parallel
+run, split over the `space` axis where the config says so
+(`parallel/step.py`'s state and collectives).
 
   * SequentialControlHook -> `with_prev` 0 before
     `optim.temporal_start_epoch`;
@@ -108,8 +109,8 @@ class Trainer:
 
     # -------------------------------------------------- checkpointing
     def save(self, epoch: int):
-        """Write the whole state (every data rank calls this; rank 0
-        writes)."""
+        """Write the whole state (every rank of the grid calls this; rank
+        0, at (d, s) = (0, 0), writes)."""
         path = os.path.abspath(
             os.path.join(self.work_dir, f"ckpt_epoch_{epoch}.pt"))
         t0 = time.perf_counter()
@@ -121,7 +122,7 @@ class Trainer:
             print(f"saved {path} ({os.path.getsize(path) / 1e9:.3f} GB in "
                   f"{time.perf_counter() - t0:.1f} s)")
         if self.mesh is not None:
-            dist.barrier(self.mesh.group)
+            dist.barrier(self.mesh.grid)
 
     def resume(self) -> int:
         """Load the checkpoint `latest.json` names into the state; the

@@ -61,7 +61,9 @@ def test_importing_every_port_module_loads_no_jax():
             "ocrfdet_tpu_torch.ops.splat.composite",
             "ocrfdet_tpu_torch.ops.splat.render_tiled",
             "ocrfdet_tpu_torch.core.targets",
-            "ocrfdet_tpu_torch.bench_train"} <= set(modules)
+            "ocrfdet_tpu_torch.bench_train",
+            "ocrfdet_tpu_torch.parallel.collectives",
+            "ocrfdet_tpu_torch.parallel.halo"} <= set(modules)
     assert len(modules) >= 35
 
 
@@ -93,7 +95,7 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_options_raise():
-    """Spatial sharding is not ported, and a renderer other than
+    """Spatial sharding builds where JAX runs it, a renderer other than
     "dense", "xla" and "pallas" is refused; training is ported, but an
     eval model (no render heads) refuses it. The profiling seams
     (`vt.ablate`) are ported: each builds, and an unknown one raises."""
@@ -111,11 +113,17 @@ def test_unported_options_raise():
     # refused (OcRFDet builds its student, GeoEnhDet adds the teacher)
     OcRFDet(tiny_config(vggt_teacher=VGGTTeacherConfig(
         depth=1, vit_depth=1, embed_dim=32, num_heads=4)))
+    # the space axis is ported: it refuses only what JAX cannot run, the
+    # cameras sharded over a space axis that does not divide them
     cfg = tiny_config(with_ocrf=False)
-    sharded = dataclasses.replace(cfg, parallel=dataclasses.replace(
-        cfg.parallel, space_axis=2, shard_cameras=True))
-    with pytest.raises(NotImplementedError, match="sharding"):
-        OcRFDet(sharded)
+    for space, ok in ((2, True), (cfg.data.num_cams + 1, False)):
+        sharded = dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, space_axis=space, shard_cameras=True))
+        if ok:
+            OcRFDet(sharded)
+        else:
+            with pytest.raises(ValueError, match="cameras"):
+                OcRFDet(sharded)
     from ocrfdet_tpu_torch.models.ocrf.view_transformer_ocrf import SEAMS
     cfg = tiny_config(with_ocrf=True)
     for ablate in [(s,) for s in SEAMS] + [SEAMS]:

@@ -1095,3 +1095,130 @@ def test_fp32_step_check_catches_backward_faults(dev, fault):
             pytest.raises(AssertionError, match="fp32 step") as err:
         chip_smoke.check_fp32_step(dev, ks)
     print(f"{fault}: {err.value}")
+
+
+# ------------------------------------------- the space axis's shapes
+def _band_gaussians(dev, seed=0, B=2, G=300, H=64, W=48):
+    """Random screen-space Gaussians over an H x W image, many of them
+    across its middle row (the edge of two bands)."""
+    from ocrfdet_tpu_torch.ops.splat.preprocess import Gaussians2D
+    rng = np.random.default_rng(seed)
+    s = rng.uniform(1.5, 6, (B, G))
+    ca = 1 / s ** 2
+    cc = 1 / (s * rng.uniform(0.7, 1.3, (B, G))) ** 2
+    cb = rng.uniform(-0.3, 0.3, (B, G)) * np.sqrt(ca * cc)
+    my = np.where(rng.random((B, G)) < 0.4,
+                  H / 2 + rng.uniform(-8, 8, (B, G)),
+                  rng.uniform(-4, H + 4, (B, G)))
+    mean2d = np.stack([rng.uniform(-4, W + 4, (B, G)), my], -1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.float32)).to(dev)
+    g = Gaussians2D(mean2d=t(mean2d), conic=t(np.stack([ca, cb, cc], -1)),
+                    radius=t(np.ceil(3 * s * 1.3)),
+                    depth=t(rng.uniform(1, 30, (B, G))),
+                    valid=torch.from_numpy(rng.random((B, G)) > 0.05)
+                    .to(dev))
+    return g, t(rng.random((B, G, 3))), t(rng.uniform(0.05, 0.95, (B, G)))
+
+
+@pytest.mark.parametrize("S", [2, 4])
+def test_composite_on_a_band_matches_the_full_render(dev, S):
+    """The space axis's render bands (models/ocrf/view_transformer_ocrf.py
+    `splat_render`): rank s renders an H / S-row image from the means
+    moved up by s H / S rows; its rows are the same rows of the full
+    render (K5 composites each tile on its own), forward and backward
+    (the gradients of a cotangent on the band's rows, with respect to
+    the colours, the opacities and the means), at K5's tolerance, rtol
+    1e-4 / atol 1e-5 of the scale."""
+    from ocrfdet_tpu_torch.ops.splat.render_tiled import \
+        render_gaussians_tiled
+    H, W = 64, 48
+    g, color, opac = _band_gaussians(dev, H=H, W=W)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cot_img = torch.randn((2, H, W, 3), generator=gen, device=dev)
+    cot_med = torch.randn((2, H, W), generator=gen, device=dev)
+    Hr = H // S
+
+    for s in range(S):
+        band = slice(s * Hr, (s + 1) * Hr)
+        # rank s's band: the means moved up by s Hr rows
+        mean2d = g.mean2d.clone().requires_grad_()
+        c, o = color.clone().requires_grad_(), opac.clone().requires_grad_()
+        shifted = g._replace(
+            mean2d=mean2d - mean2d.new_tensor([0.0, float(s * Hr)]))
+        img, med, _ = render_gaussians_tiled(shifted, c, o, Hr, W)
+        torch.autograd.backward([img, med], [cot_img[:, band],
+                                             cot_med[:, band]])
+        grads = (c.grad, o.grad, mean2d.grad)
+        mask = torch.zeros((1, H, 1), device=dev)
+        mask[:, band] = 1
+        # the full render with the cotangent of the band's rows only
+        mean2d = g.mean2d.clone().requires_grad_()
+        c, o = color.clone().requires_grad_(), opac.clone().requires_grad_()
+        f_img, f_med, _ = render_gaussians_tiled(g._replace(mean2d=mean2d),
+                                                 c, o, H, W)
+        torch.autograd.backward([f_img, f_med], [cot_img * mask[..., None],
+                                                 cot_med * mask])
+        torch.testing.assert_close(img, f_img[:, band], rtol=1e-4,
+                                   atol=1e-5 * float(f_img.abs().max()))
+        flips = int((med - f_med[:, band]).abs().gt(
+            1e-5 * f_med[:, band].abs()).sum())
+        assert flips <= max(1, med.numel() // 10000), (s, flips)
+        for got, want in zip(grads, (c.grad, o.grad, mean2d.grad)):
+            torch.testing.assert_close(got, want, rtol=1e-4,
+                                       atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4"])
+def test_kernels_on_a_camera_block(dev, kernel):
+    """K2-K4 forward and backward on the flagship rig's cameras 3-5 at
+    batch 2 (the block of 3 cameras the second rank of the space axis
+    gives them: chip_smoke.py's flagship inputs, sliced) against their
+    plain versions, at the tolerances above."""
+    import chip_smoke
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    cfg = ocrfdet_config(batch_size=2)
+    blk = slice(3, 6)
+    if kernel == "K2":
+        depth, feat, vox, valid, size = chip_smoke.flagship_lss_inputs(
+            cfg, dev, 2, seed=1)
+        args = [t[:, blk].contiguous() for t in (depth, feat, vox, valid)]
+        args.append(size)
+        fn, plain, diff = bp.lss_pool, bp.lss_pool_plain, (0, 1)
+    elif kernel == "K3":
+        uvd, valid = chip_smoke.flagship_projection(cfg, dev, 2)
+        D, C = cfg.grid.num_depth_bins, cfg.vt.out_channels
+        h = cfg.data.input_size[0] // cfg.vt.downsample
+        w = cfg.data.input_size[1] // cfg.vt.downsample
+        gen = torch.Generator(device=dev).manual_seed(2)
+        depth = torch.randn((2, 3, h, w, D), generator=gen,
+                            device=dev).softmax(-1)
+        depth = torch.where(depth < cfg.vt.depth_threshold / D,
+                            torch.zeros_like(depth), depth)
+        ctx = torch.randn((2, 3, h, w, C), generator=gen, device=dev)
+        args = list(htp.ht_pool_inputs(depth, ctx, uvd[:, blk].contiguous(),
+                                       valid[:, blk].contiguous()))
+        fn, plain, diff = htp.ht_pool_points, htp.ht_pool_points_plain, (0, 1)
+    else:
+        uvd, _ = chip_smoke.flagship_projection(cfg, dev, 2)
+        H, W = cfg.vt.render_image_size
+        P = uvd.shape[2] * uvd.shape[3]
+        gen = torch.Generator(device=dev).manual_seed(3)
+        maps = torch.rand((6, H, W, 4), generator=gen, device=dev)
+        px = (uvd[:, blk, ..., 0] * W).reshape(6, P).contiguous()
+        py = (uvd[:, blk, ..., 1] * H).reshape(6, P).contiguous()
+        args = [maps, px, py]
+        fn, plain, diff = (ps.point_sample_points,
+                           ps.point_sample_points_plain, (0,))
+    got, want = fn(*args), plain(*args)
+    if kernel == "K4":
+        assert torch.equal(got, want)
+    else:
+        scale = float(want.abs().max()) if kernel == "K3" else 1.0
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cot = torch.randn(want.shape, generator=gen, device=dev)
+    _assert_grads_close(_grads(fn, args, diff, cot),
+                        _grads(plain, args, diff, cot))

@@ -260,10 +260,12 @@ def test_dp_gathered_moments_match_jax(run, kind):
     _rel_l2(got, want, 0.05 * tol, 0.25 * tol)
 
 
-def test_dp_step_matches_jax_step(run):
-    """Parameters, BatchNorm statistics and both EMA trees after one
-    step, gathered from the ranks; the step count."""
-    step = run["step"]
+def check_step_matches_jax(run, step, factor, bn_atol=1e-5):
+    """Parameters, BatchNorm statistics (rtol 1e-3, `bn_atol`) and both
+    EMA trees after one step, gathered from the ranks (`step`), against
+    JAX's step (`run`'s jraw, jema and jstep), on the entries whose raw
+    gradients (`run`'s jgrads, the ones JAX's step clips, divided by its
+    gradient `factor`) the packages agree on; the step count."""
     st, cfg = step["state"], run["cfg"].optim
     assert st["step"] == run["jstep"] == 1
     assert step["metrics"]["skipped_nonfinite"] == 0.0
@@ -276,23 +278,22 @@ def test_dp_step_matches_jax_step(run):
     jnorm = np.sqrt(sum(float((g.numpy().astype(np.float64) ** 2).sum())
                         for g in run["jgrads"].values()))
     clip = min(1.0, cfg.grad_clip_norm / jnorm)
-    jgrads = {k: v / 2 for k, v in run["jgrads"].items()}   # see above
     n_checked = 0
     for k, want in run["jraw"].items():
         if k.endswith("num_batches_tracked"):
             continue
         if k.endswith(("running_mean", "running_var")):
             np.testing.assert_allclose(model[k].numpy(), want.numpy(),
-                                       rtol=1e-3, atol=1e-5, err_msg=k)
+                                       rtol=1e-3, atol=bn_atol, err_msg=k)
             np.testing.assert_allclose(ema[k].numpy(), run["jema"][k].numpy(),
-                                       rtol=1e-3, atol=1e-5, err_msg=k)
+                                       rtol=1e-3, atol=bn_atol, err_msg=k)
             continue
         k_lr = lr * cfg.lr_mult_render if k in render else lr
         p0 = init[k].numpy()
         np.testing.assert_allclose(model[k].numpy(), want.numpy(), rtol=0,
                                    atol=2.5 * k_lr, err_msg=k)
-        jg, tg = jgrads[k].numpy(), step["grads"][k].numpy()
-        agree = ((np.abs(jg) * 2 * clip > 1e-5)
+        jg, tg = run["jgrads"][k].numpy() / factor, step["grads"][k].numpy()
+        agree = ((np.abs(jg) * factor * clip > 1e-5)
                  & (np.abs(tg - jg) < 0.5 * np.abs(jg)))
         spacing = 2 * np.spacing(np.abs(p0) + 2.5 * k_lr)
         for got, wnt, size in ((model[k], want, k_lr),
@@ -304,6 +305,12 @@ def test_dp_step_matches_jax_step(run):
                                          err_msg=k)
         n_checked += int(agree.sum())
     assert n_checked > 0.5 * sum(t.numel() for t in step["grads"].values())
+
+
+def test_dp_step_matches_jax_step(run):
+    """Parameters, BatchNorm statistics and both EMA trees after one
+    step, gathered from the ranks; the step count."""
+    check_step_matches_jax(run, run["step"], 2)     # see above
 
 
 def test_zero_halves_each_ranks_moments_and_ema(run):

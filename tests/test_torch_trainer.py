@@ -163,16 +163,16 @@ def test_eval_tool_on_the_cpu(runs, capsys):
 
 @pytest.mark.parametrize("flag,item", [("--multihost", "13b")])
 def test_train_tool_refuses_unported_options(flag, item, monkeypatch):
-    """`--multihost` runs the data axis; a config with the space axis
-    (parallel.space_axis > 1) is refused before any process group
-    starts."""
+    """`--multihost` runs the data axis and, since ROADMAP item `item`,
+    the space axis (parallel.space_axis > 1); a space axis wider than
+    the world is refused before any process group starts."""
     cfg = tconfig.tiny_config()
     cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
         cfg.parallel, space_axis=2))
     monkeypatch.setattr(train_tool, "select_config", lambda args: cfg)
     monkeypatch.setenv("RANK", "0")
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(ValueError, match="smaller than the space axis 2"):
         train_tool.main(["--infos", "unused.pkl", flag, "--device", "cpu"])
     assert not torch.distributed.is_initialized()
 
