@@ -185,7 +185,7 @@ def device_ms_traces(fn, reps: int, warmup: int = 1) -> list:
                 fn()
             torch.cuda.synchronize()
         spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if _is_kernel(e)]
         k = round(len(spans) / reps)
         if k >= 1:
             estimates.append(sum(spans) * k / len(spans) / 1e3)
@@ -202,6 +202,13 @@ def device_ms_traces(fn, reps: int, warmup: int = 1) -> list:
     return [start.elapsed_time(end) / reps]
 
 
+def _is_kernel(e) -> bool:
+    """A device event of the trace that is no range drawn on the device's
+    timeline (the program's `ocrfdet.` spans, `record_function`)."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
 def device_ms_by_kernel(fn, reps: int) -> dict:
     """{device kernel or memset name: mean device ms per call of fn()} from
     one torch.profiler trace of `reps` calls (after one warm-up call)."""
@@ -214,7 +221,7 @@ def device_ms_by_kernel(fn, reps: int) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if _is_kernel(e):
             name = e.name.replace("(anonymous namespace)::", "")
             name = name.split("(")[0].split("::")[-1].strip()
             out[name] = out.get(name, 0.0) + (
@@ -1314,7 +1321,7 @@ def check_geoenh_training(dev, all_kernels, per_step, n_steps=5,
     # annotations span their gaps too
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in dev_events if not e.name.startswith("geoenh.")]
+    kernels = [e for e in dev_events if _is_kernel(e)]
     step_busy = busy_us([(e.time_range.start, e.time_range.end)
                          for e in kernels]) / 1e3
 

@@ -22,7 +22,7 @@ the default device raises.
 """
 from __future__ import annotations
 
-import time
+from contextlib import nullcontext
 from typing import Dict, Optional
 
 import numpy as np
@@ -35,6 +35,7 @@ from .models.detector import OcRFDet
 from .models.geoenh import GeoEnhDet
 from .ops.nms import multi_task_nms
 from .train.step import TrainState, train_step  # noqa: F401 (entry point)
+from .utils import spans
 from .utils.weights import init_weights
 
 
@@ -95,28 +96,47 @@ def to_device(arrays: Dict, device) -> Dict:
 
 @torch.inference_mode()
 def infer(model: OcRFDet, batch: Dict[str, torch.Tensor],
-          timings: Optional[Dict[str, float]] = None):
+          timings: Optional[Dict] = None):
     """Answer one request: (preds, aux, decoded boxes per task,
     detections), with detections one `multi_task_nms` result (numpy
     boxes [M,9] bottom-centred, scores [M], labels [M]) per sample.
 
-    With `timings`, it records host-clock seconds: `dispatch` (the
-    forward and the decode issued), `wait` (the decoded boxes copied to
-    the host, which waits for the device) and `nms`."""
-    t0 = time.perf_counter()
-    preds, aux = model(batch)
-    decoded = decode_all_tasks(preds, model.cfg.head, model.cfg.grid)
-    t1 = time.perf_counter()
-    host = [{k: v.cpu().numpy() for k, v in d._asdict().items()}
-            for d in decoded]
-    t2 = time.perf_counter()
-    B = batch["imgs"].shape[0]
-    detections = [multi_task_nms([{k: v[b] for k, v in d.items()}
-                                  for d in host], model.cfg.head)
-                  for b in range(B)]
-    if timings is not None:
-        timings.update(dispatch=t1 - t0, wait=t2 - t1,
-                       nms=time.perf_counter() - t2)
+    With `timings`, it records the request's spans (`utils/spans.py`)
+    and returns host-clock seconds: `dispatch` (the forward and the
+    decode issued), `wait` (the decoded boxes copied to the host, which
+    waits for the device) and `nms` (every sample's); `spans`, each
+    [name, parent, start_s, end_s] from the request's start; `request`,
+    the id the spans share; and `counts`: `nms_candidates` and
+    `nms_kept` (boxes into and out of the NMS calls) and, on the card,
+    `allocs` (the caching allocator's allocations over the dispatch)."""
+    dev = batch["imgs"].device
+    with spans.recording() if timings is not None else nullcontext() as rec:
+        allocs0 = spans.allocations(dev) if rec is not None else None
+        with spans.span("ocrfdet.dispatch"):
+            with spans.span("ocrfdet.forward"):
+                preds, aux = model(batch)
+            with spans.span("ocrfdet.decode"):
+                decoded = decode_all_tasks(preds, model.cfg.head,
+                                           model.cfg.grid)
+        allocs1 = spans.allocations(dev) if rec is not None else None
+        with spans.span("ocrfdet.wait"):
+            host = [{k: v.cpu().numpy() for k, v in d._asdict().items()}
+                    for d in decoded]
+        detections = []
+        for b in range(batch["imgs"].shape[0]):
+            with spans.span("ocrfdet.nms"):
+                detections.append(multi_task_nms(
+                    [{k: v[b] for k, v in d.items()} for d in host],
+                    model.cfg.head))
+    if rec is not None:
+        counts = dict(rec.counts)
+        if allocs0 is not None:
+            counts["allocs"] = allocs1 - allocs0
+        timings.update(dispatch=rec.seconds("ocrfdet.dispatch"),
+                       wait=rec.seconds("ocrfdet.wait"),
+                       nms=rec.seconds("ocrfdet.nms"),
+                       spans=rec.relative(), request=rec.request,
+                       counts=counts)
     return preds, aux, decoded, detections
 
 

@@ -65,6 +65,7 @@ from ..geometry.transforms import camera_mlp_input
 from ..ops.cost_volume import stereo_cost_volume
 from ..parallel.collectives import Axis, all_gather_cat
 from ..parallel.halo import slice_rows
+from ..utils.spans import span
 from .centerhead import CenterHead
 from .fpn import CustomFPN, FPN_LSS
 from .resnet import CustomResNet, ResNet
@@ -231,7 +232,7 @@ class OcRFDet(nn.Module):
 
         def local(t):       # the rank's cameras inside the VT
             return t if deep is None else self._slice_cams(t, deep)
-        with towers():
+        with span("ocrfdet.encoder"), towers():
             fpn, stem = self.image_encoder(batch["imgs"][:, f],
                                            gather=deep is None)
         cams_full = self._frame_cams(batch, f)
@@ -242,24 +243,26 @@ class OcRFDet(nn.Module):
             cams.post_rots, cams.post_trans, batch["bda"]).float()
         cv = None
         if cfg.use_stereo and stem_prev is not None:
-            cv = self._cost_volume(stem.detach(), stem_prev,
-                                   local(batch["k2s_sensor"][:, f]), cams)
-        if cfg.with_ocrf:
-            bev, aux = self.img_view_transformer(
-                fpn, cams, mlp_input, cv, towers, batch=batch, is_key=is_key,
-                space=deep, cams_full=cams_full,
-                render_band=cfg.parallel.shard_render)
-        else:
-            with towers():
-                depth, semantic, context = self.img_view_transformer(
-                    fpn, mlp_input, cost_volume=cv)
-            bev = self.img_view_transformer.splat(depth, context, cams, deep) \
-                .permute(0, 3, 1, 2)
-            aux = dict(depth=depth, semantic=semantic)
+            with span("ocrfdet.stereo"):
+                cv = self._cost_volume(stem.detach(), stem_prev,
+                                       local(batch["k2s_sensor"][:, f]), cams)
+        with span("ocrfdet.vt"):
+            if cfg.with_ocrf:
+                bev, aux = self.img_view_transformer(
+                    fpn, cams, mlp_input, cv, towers, batch=batch,
+                    is_key=is_key, space=deep, cams_full=cams_full,
+                    render_band=cfg.parallel.shard_render)
+            else:
+                with towers():
+                    depth, semantic, context = self.img_view_transformer(
+                        fpn, mlp_input, cost_volume=cv)
+                bev = self.img_view_transformer.splat(depth, context, cams,
+                                                      deep).permute(0, 3, 1, 2)
+                aux = dict(depth=depth, semantic=semantic)
         halo = self._bev_halo()
         if halo is not None:
             bev = slice_rows(bev, halo)
-        with towers():
+        with span("ocrfdet.bev"), towers():
             bev = self.pre_process(bev, halo)[0]
         if is_key:
             if deep is not None:    # every camera's maps for the losses
@@ -292,7 +295,7 @@ class OcRFDet(nn.Module):
             # stop_gradient on every other frame)
             with torch.set_grad_enabled(is_key and torch.is_grad_enabled()):
                 if cfg.use_stereo and f == F_total - 1:
-                    with towers():
+                    with span("ocrfdet.encoder"), towers():
                         _, stem_prev = self.image_encoder(
                             imgs[:, f], stem_only=True,
                             gather=self._vt_axis() is None)
@@ -310,9 +313,11 @@ class OcRFDet(nn.Module):
         bev_cat = torch.cat(bev_feats, dim=1)
         halo = self._bev_halo()
         with towers():
-            feats = self.img_bev_encoder_backbone(bev_cat, halo)
-            x = self.img_bev_encoder_neck(feats[0], feats[2], halo)
-            preds = self.pts_bbox_head(x, halo)
+            with span("ocrfdet.bev"):
+                feats = self.img_bev_encoder_backbone(bev_cat, halo)
+                x = self.img_bev_encoder_neck(feats[0], feats[2], halo)
+            with span("ocrfdet.head"):
+                preds = self.pts_bbox_head(x, halo)
         if halo is not None:    # the rows of every rank, channel-last
             preds = [{k: all_gather_cat(v, halo, 1) for k, v in t.items()}
                      for t in preds]

@@ -71,6 +71,7 @@ from ...ops.splat.preprocess import (Gaussians2D, preprocess_gaussians,
 from ...ops.splat.render_dense import render_gaussians_dense
 from ...ops.splat.render_tiled import render_gaussians_tiled
 from ...parallel.collectives import all_gather_cat, psum
+from ...utils.spans import span
 from ..fpn import resize_bilinear
 from ..norm import BatchNorm2d
 from ..view_transformer import CameraParams, LSSViewTransformer
@@ -243,7 +244,7 @@ class OcRFViewTransformer(nn.Module):
                              "model with render_heads=True")
         B = x.shape[0]
         Zh, Y, X = cfg.num_height, cfg.bev_h, cfg.bev_w
-        with towers():
+        with span("ocrfdet.vt.depthnet"), towers():
             depth, semantic, context = self.lss(x, mlp_input, cost_volume)
         thr = cfg.depth_threshold / self.D
         f_depth = torch.where(depth < thr, torch.zeros_like(depth), depth)
@@ -251,22 +252,26 @@ class OcRFViewTransformer(nn.Module):
         f_context = context * img_mask.to(context.dtype)
         cdt = context.dtype                 # the towers' compute dtype
 
-        lss_feat = self.lss.splat(f_depth, f_context, cams, space) \
-            .permute(0, 3, 1, 2)                           # [B,C,Y,X]
-        ht_feat, uvd, valid = self.ht_pool(f_depth, f_context, cams, space)
+        with span("ocrfdet.vt.splat"):
+            lss_feat = self.lss.splat(f_depth, f_context, cams, space) \
+                .permute(0, 3, 1, 2)                       # [B,C,Y,X]
+        with span("ocrfdet.vt.ht_pool"):
+            ht_feat, uvd, valid = self.ht_pool(f_depth, f_context, cams,
+                                               space)
 
         # voxel lift [B,C,Y,X] -> [B,Zh,Nq,C] (fp32), BN over the heights
-        ht_last = ht_feat.float().flatten(2).transpose(1, 2)   # [B,Nq,C]
-        vf = (ht_last[:, None] * self.height_w[None, :, None, None]
-              + self.height_b[None, :, None, None])
-        voxel_feat = F.relu(self.height_bn(vf))
-        with towers():
-            opacity = self.A_MLP(voxel_feat)[..., 0]         # [B,Zh,Nq]
+        with span("ocrfdet.vt.lift"):
+            ht_last = ht_feat.float().flatten(2).transpose(1, 2)  # [B,Nq,C]
+            vf = (ht_last[:, None] * self.height_w[None, :, None, None]
+                  + self.height_b[None, :, None, None])
+            voxel_feat = F.relu(self.height_bn(vf))
+            with towers():
+                opacity = self.A_MLP(voxel_feat)[..., 0]     # [B,Zh,Nq]
         if "nerf" in ablate:                   # profiling-only seam
             alphas = x.new_zeros((B, x.shape[1], *cfg.render_image_size),
                                  dtype=torch.float32)
         else:
-            with towers():
+            with span("ocrfdet.vt.nerf"), towers():
                 alphas = self.nerf_alphas(x)                 # [B,N,H,W]
         if "sample" in ablate:                 # profiling-only seam
             sampled = x.new_zeros((B, Zh, Y * X, 4 if render_on else 1),
@@ -279,7 +284,8 @@ class OcRFViewTransformer(nn.Module):
                     n = x.shape[1]
                     imgs_rgb = imgs_rgb.narrow(1, space.index * n, n)
                 maps = torch.cat([maps, imgs_rgb], dim=-1)
-            sampled = self.sample_at_voxels(maps, uvd, valid, space)
+            with span("ocrfdet.vt.sample"):
+                sampled = self.sample_at_voxels(maps, uvd, valid, space)
             del maps
         alpha_vox = sampled[..., 0].reshape(B, Zh, Y, X)
         opac_vox = opacity.reshape(B, Zh, Y, X)
@@ -288,23 +294,25 @@ class OcRFViewTransformer(nn.Module):
         # an output), residual add
         ds_hw = (max(Y // 6, 8), max(X // 6, 8))
         with towers():
-            if "hoa" in ablate:                # profiling-only seam
-                opacity_alpha = opac_vox
-            else:
-                op_ds = resize_bilinear(opac_vox, ds_hw)
-                al_ds = resize_bilinear(alpha_vox.to(op_ds.dtype), ds_hw)
-                att = self.defor_cross_attention(op_ds, al_ds)
-                opacity_alpha = resize_bilinear(att, (Y, X)) + opac_vox
-            opacity_bev_logit = self.OpacityVoxelToBEV(
-                opacity_alpha.to(cdt), self.pos_enc_hoa(B).to(cdt))
+            with span("ocrfdet.vt.hoa"):
+                if "hoa" in ablate:            # profiling-only seam
+                    opacity_alpha = opac_vox
+                else:
+                    op_ds = resize_bilinear(opac_vox, ds_hw)
+                    al_ds = resize_bilinear(alpha_vox.to(op_ds.dtype), ds_hw)
+                    att = self.defor_cross_attention(op_ds, al_ds)
+                    opacity_alpha = resize_bilinear(att, (Y, X)) + opac_vox
+                opacity_bev_logit = self.OpacityVoxelToBEV(
+                    opacity_alpha.to(cdt), self.pos_enc_hoa(B).to(cdt))
 
-            channel_feat = self.fuser(lss_feat, ht_feat)
-            bev_mask_logit = self.prob(self.pos_enc(B).to(cdt)
-                                       + channel_feat)
-            geom_feat = self.geom_att(channel_feat, bev_mask_logit) \
-                * channel_feat
-            geom_feat = geom_feat * self.opacity_gate(geom_feat,
-                                                      opacity_bev_logit)
+            with span("ocrfdet.vt.fuse"):
+                channel_feat = self.fuser(lss_feat, ht_feat)
+                bev_mask_logit = self.prob(self.pos_enc(B).to(cdt)
+                                           + channel_feat)
+                geom_feat = self.geom_att(channel_feat, bev_mask_logit) \
+                    * channel_feat
+                geom_feat = geom_feat * self.opacity_gate(geom_feat,
+                                                          opacity_bev_logit)
         aux: Dict[str, torch.Tensor] = dict(
             depth=depth, semantic=semantic,
             bev_mask_logit=bev_mask_logit.permute(0, 2, 3, 1),

@@ -28,6 +28,7 @@ from typing import Dict, List
 import numpy as np
 
 from ..kernels import BUILD_DIR, CSRC
+from ..utils.spans import count, span
 
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 _LIB = None
@@ -228,9 +229,10 @@ def multi_task_nms(task_results: List[Dict[str, np.ndarray]], head_cfg,
         if len(boxes):
             if head_cfg.nms_type[t] == "circle":
                 radius = head_cfg.circle_nms_min_radius[t]
-                keep = circle_nms(
-                    np.concatenate([boxes[:, :2], scores[:, None]], -1),
-                    radius, post_max_size=head_cfg.post_max_size)
+                with span("ocrfdet.nms.circle"):
+                    keep = circle_nms(
+                        np.concatenate([boxes[:, :2], scores[:, None]], -1),
+                        radius, post_max_size=head_cfg.post_max_size)
             else:
                 factor = head_cfg.nms_rescale_factor[t]
                 scaled = boxes.copy()
@@ -240,10 +242,13 @@ def multi_task_nms(task_results: List[Dict[str, np.ndarray]], head_cfg,
                 else:
                     scaled[:, 3:6] *= factor
                 bev = scaled[:, [0, 1, 3, 4, 6]]
-                keep = nms_rotated(
-                    bev, scores, head_cfg.nms_thr[t],
-                    pre_max_size=head_cfg.pre_max_size,
-                    post_max_size=head_cfg.post_max_size, native=native)
+                with span("ocrfdet.nms.rotated"):
+                    keep = nms_rotated(
+                        bev, scores, head_cfg.nms_thr[t],
+                        pre_max_size=head_cfg.pre_max_size,
+                        post_max_size=head_cfg.post_max_size, native=native)
+            count("nms_candidates", len(boxes))
+            count("nms_kept", len(keep))
             boxes, scores, labels = boxes[keep], scores[keep], labels[keep]
         merged_boxes.append(boxes)
         merged_scores.append(scores)

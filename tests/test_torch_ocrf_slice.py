@@ -179,7 +179,9 @@ def test_ocrf_infer_on_cpu_runs_the_plain_versions(stereo):
                                stereo["tout"][1][0][0]["heatmap"])
     torch.testing.assert_close(aux["opacity_bev_logit"],
                                stereo["tout"][1][1]["opacity_bev_logit"])
-    assert set(timings) == {"dispatch", "wait", "nms"}
+    assert set(timings) == {"dispatch", "wait", "nms", "spans", "request",
+                            "counts"}
+    assert "allocs" not in timings["counts"]     # no allocator on the CPU
     assert len(dets) == 1
     n_valid = sum(int(d.valid.sum()) for d in decoded)
     assert 0 < len(dets[0]["boxes"]) <= n_valid
