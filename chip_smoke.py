@@ -1778,11 +1778,15 @@ def plain_versions(only=None):
     """Route the model's kernel wrappers (all, or those named in `only`)
     to their plain versions (for a reference run on the card): forwards,
     and the backwards through the plain forwards' autograd and K5's
-    plain autograd Function."""
+    plain autograd Function. The view transformer runs eagerly: a
+    captured graph replays the kernels it captured."""
+    from ocrfdet_tpu_torch.models.detector import OcRFDet
     with contextlib.ExitStack() as stack:
         for name, (mod, attr, plain) in _kernel_entries().items():
             if only is None or name in only:
                 stack.enter_context(mock.patch.object(mod, attr, plain))
+        stack.enter_context(mock.patch.object(
+            OcRFDet, "_vt_graphed", lambda self, imgs: False))
         yield
 
 

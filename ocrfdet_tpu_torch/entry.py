@@ -107,8 +107,10 @@ def infer(model: OcRFDet, batch: Dict[str, torch.Tensor],
     waits for the device) and `nms` (every sample's); `spans`, each
     [name, parent, start_s, end_s] from the request's start; `request`,
     the id the spans share; and `counts`: `nms_candidates` and
-    `nms_kept` (boxes into and out of the NMS calls) and, on the card,
-    `allocs` (the caching allocator's allocations over the dispatch)."""
+    `nms_kept` (boxes into and out of the NMS calls), `vt_calls` and
+    `vt_replays` (the view transformer's calls, and those that replayed
+    its CUDA graph: models/detector.py) and, on the card, `allocs` (the
+    caching allocator's allocations over the dispatch)."""
     dev = batch["imgs"].device
     with spans.recording() if timings is not None else nullcontext() as rec:
         allocs0 = spans.allocations(dev) if rec is not None else None

@@ -12,6 +12,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.cuda_graph import constant
+
 
 def sid_depth_bins(depth_cfg: Tuple[float, float, float]) -> np.ndarray:
     """Spacing-increasing depth bin centres, D = len(arange(*depth_cfg)).
@@ -38,6 +40,14 @@ def make_frustum(depth_cfg, input_size, downsample) -> np.ndarray:
     return out
 
 
+def _inv(m):
+    """torch.linalg.inv without its check for singular matrices, which
+    reads the device's status on the host (and so cannot be captured
+    in a CUDA graph): the same inverse, not finite where m is singular,
+    as the JAX package's."""
+    return torch.linalg.inv_ex(m).inverse
+
+
 def frustum_to_ego(frustum, rots, trans, intrins, post_rots, post_trans, bda):
     """Frustum template -> points in the (BDA-augmented) key-ego frame.
 
@@ -45,10 +55,10 @@ def frustum_to_ego(frustum, rots, trans, intrins, post_rots, post_trans, bda):
     trans/post_trans [B,N,3]; bda [B,3,3]. Returns [B,N,D,fH,fW,3].
     """
     pts = frustum[None, None] - post_trans[:, :, None, None, None, :]
-    pts = torch.einsum('bnij,bndhwj->bndhwi', torch.linalg.inv(post_rots), pts)
+    pts = torch.einsum('bnij,bndhwj->bndhwi', _inv(post_rots), pts)
     # un-project: (u*d, v*d, d)
     pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], dim=-1)
-    combine = rots @ torch.linalg.inv(intrins)
+    combine = rots @ _inv(intrins)
     pts = torch.einsum('bnij,bndhwj->bndhwi', combine, pts)
     pts = pts + trans[:, :, None, None, None, :]
     return torch.einsum('bij,bndhwj->bndhwi', bda, pts)
@@ -61,8 +71,8 @@ def voxel_indices(coor, grid_lower, grid_interval, grid_size):
     The cast truncates toward zero, as the reference's .long() does, so
     fractional coordinates in (-1, 0) land in cell 0 and are kept.
     """
-    lower = torch.tensor(grid_lower, dtype=coor.dtype, device=coor.device)
-    step = torch.tensor(grid_interval, dtype=coor.dtype, device=coor.device)
+    lower = constant(grid_lower, coor.dtype, coor.device)
+    step = constant(grid_interval, coor.dtype, coor.device)
     idx = ((coor - lower) / step).to(torch.int32)
     valid = ((idx[..., 0] >= 0) & (idx[..., 0] < grid_size[0]) &
              (idx[..., 1] >= 0) & (idx[..., 1] < grid_size[1]) &
@@ -96,8 +106,8 @@ def ego_to_image(rots, trans, intrins, post_rots, post_trans, bda):
     """
     B, N = rots.shape[:2]
     bda_bn = bda[:, None].expand(B, N, 3, 3)
-    inv_rot = torch.linalg.inv(rots)
-    R = intrins @ inv_rot @ torch.linalg.inv(bda_bn)
+    inv_rot = _inv(rots)
+    R = intrins @ inv_rot @ _inv(bda_bn)
     t = -(intrins @ inv_rot @ trans[..., None])
     lidar2img = torch.cat([R, t], dim=-1)
     img_aug = torch.cat([post_rots, post_trans[..., None]], dim=-1)
@@ -115,8 +125,7 @@ def project_points(ref_points, pc_range, depth_range, lidar2img, img_aug,
     operations and their order are the JAX package's, in fp32, so that
     the nearest-index rounding downstream (ops/ht_pool.py) agrees.
     """
-    pc = torch.tensor(pc_range, dtype=torch.float32,
-                      device=ref_points.device)
+    pc = constant(pc_range, torch.float32, ref_points.device)
     p = ref_points * (pc[3:6] - pc[0:3]) + pc[0:3]          # [Z,Nq,3]
     Z, Nq = p.shape[:2]
     B, N = lidar2img.shape[:2]

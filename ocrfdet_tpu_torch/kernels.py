@@ -14,8 +14,8 @@ library of its own.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `Kernel.launch` raises if that is not 0 and
-otherwise adds one to the kernel's `launches` count. Nothing is built
-when the module is imported.
+otherwise adds one to the kernel's `launches` count. `KERNELS` lists
+every `Kernel` made. Nothing is built when the module is imported.
 
 The wrappers in `ops/` register each kernel's entry points as
 `torch.library` custom ops under `OPS_NAMESPACE`, "ocrfdet".
@@ -36,6 +36,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+KERNELS: list = []      # every Kernel, in the order they were made
 
 
 def nvcc_path() -> str:
@@ -64,6 +65,7 @@ class Kernel:
         self.defines = tuple(defines)  # macros of this build of the source
         self.launches = 0
         self._lib = None
+        KERNELS.append(self)
 
     @property
     def source_path(self) -> Path:

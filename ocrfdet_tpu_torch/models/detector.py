@@ -44,6 +44,13 @@ axis of `cfg.parallel.space_axis` ranks):
   * `shard_render` (with `shard_vt`): the splat render in row bands.
 Every rank returns the whole predictions and aux maps.
 
+In served eval on the card (`_vt_graphed`: a CUDA input, eval mode, grad
+off, no space axis, not under torch.compile or torch.export) each call
+of the OcRF view transformer replays a CUDA graph captured on the first
+call of its shapes (utils/cuda_graph.py); the two frames of a request
+share it. Everywhere else, and for the LSS view transformer, it runs
+eagerly. The span recorder counts `vt_calls` and `vt_replays`.
+
 In train mode (`model.train()`) BatchNorm normalises with batch
 statistics and moves its running statistics (flax's update, models/
 norm.py) in every frame, the ASPP applies dropout, the image backbone's
@@ -65,7 +72,8 @@ from ..geometry.transforms import camera_mlp_input
 from ..ops.cost_volume import stereo_cost_volume
 from ..parallel.collectives import Axis, all_gather_cat
 from ..parallel.halo import slice_rows
-from ..utils.spans import span
+from ..utils.cuda_graph import CudaGraphs, capturable
+from ..utils.spans import count, span
 from .centerhead import CenterHead
 from .fpn import CustomFPN, FPN_LSS
 from .resnet import CustomResNet, ResNet
@@ -119,6 +127,7 @@ class OcRFDet(nn.Module):
             chans[0] + chans[2], cfg.bev_encoder.neck_out_channels)
         self.pts_bbox_head = CenterHead(cfg.head)
         self.space: Axis = None
+        self.vt_graphs = CudaGraphs(counter="vt_replays")
 
     def set_space(self, axis: Axis) -> None:
         """Run as one rank of the `space` axis `axis` (None: alone)."""
@@ -224,9 +233,26 @@ class OcRFDet(nn.Module):
         axis = self._camera_axis()
         return axis if self.cfg.parallel.shard_vt else None
 
-    def _frame(self, batch, f, is_key, stem_prev, key_cams, towers):
+    def _vt_graphed(self, imgs) -> bool:
+        """Whether the OcRF view transformer's calls in a forward on the
+        images `imgs` go through a captured graph: served eval on the
+        card."""
+        return (capturable(imgs) and not self.training
+                and not torch.is_grad_enabled() and self.space is None)
+
+    def _vt_eval(self, x, rots, trans, intrins, post_rots, post_trans, bda,
+                 mlp_input, cv):
+        """The OcRF view transformer's eval call on flat tensors, the
+        function its graph captures (`is_key` only matters in training)."""
+        return self.img_view_transformer(
+            x, CameraParams(rots, trans, intrins, post_rots, post_trans, bda),
+            mlp_input, cv, lambda: towers_autocast(x.device, self.dtype))
+
+    def _frame(self, batch, f, is_key, stem_prev, key_cams, towers,
+               graphed=False):
         """One temporal frame: (bev [B,C,Y,X] after the pre-process, on a
-        row block where the rows are sharded; aux; stem)."""
+        row block where the rows are sharded; aux; stem). `graphed`: the
+        OcRF view transformer goes through its graph."""
         cfg = self.cfg
         deep = self._vt_axis()
 
@@ -247,7 +273,12 @@ class OcRFDet(nn.Module):
                 cv = self._cost_volume(stem.detach(), stem_prev,
                                        local(batch["k2s_sensor"][:, f]), cams)
         with span("ocrfdet.vt"):
-            if cfg.with_ocrf:
+            count("vt_calls", 1)
+            if cfg.with_ocrf and graphed:
+                bev, aux = self.vt_graphs(self._vt_eval,
+                                          self.img_view_transformer, fpn,
+                                          *cams, mlp_input, cv)
+            elif cfg.with_ocrf:
                 bev, aux = self.img_view_transformer(
                     fpn, cams, mlp_input, cv, towers, batch=batch,
                     is_key=is_key, space=deep, cams_full=cams_full,
@@ -286,6 +317,7 @@ class OcRFDet(nn.Module):
 
         def towers():
             return towers_autocast(imgs.device, self.dtype)
+        graphed = self._vt_graphed(imgs)
         stem_prev = None
         bev_feats = []          # temporal frames only, oldest first
         key_aux: Dict[str, torch.Tensor] = {}
@@ -302,7 +334,7 @@ class OcRFDet(nn.Module):
                     stem_prev = stem_prev.detach()
                     continue
                 bev, aux, stem = self._frame(batch, f, is_key, stem_prev,
-                                             key_cams, towers)
+                                             key_cams, towers, graphed)
             if is_key:
                 key_aux = aux
             else:

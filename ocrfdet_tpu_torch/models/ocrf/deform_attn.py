@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.grid_sample import grid_sample_2d
+from ...utils.cuda_graph import constant
 
 
 class CPB(nn.Module):
@@ -72,8 +73,8 @@ class DeformableAttention2D(nn.Module):
         off = torch.tanh(self.off_pw(off)) * self.offset_scale
         hh, ww = off.shape[2:]
         vgrid = _norm_grid(hh, ww, q.device)[None] + off.permute(0, 2, 3, 1)
-        norm = torch.tensor([max(ww - 1, 1), max(hh - 1, 1)],
-                            dtype=torch.float32, device=q.device)
+        norm = constant((max(ww - 1, 1), max(hh - 1, 1)), torch.float32,
+                        q.device)
         vgrid_n = 2.0 * vgrid / norm - 1.0               # [B, hh, ww, 2]
         kv = grid_sample_2d(x_kv, vgrid_n, align_corners=False)
         kk, vv = self.to_k(kv), self.to_v(kv)
@@ -81,8 +82,8 @@ class DeformableAttention2D(nn.Module):
         kf = kk.reshape(B, h, d, hh * ww)
         vf = vv.reshape(B, h, d, hh * ww)
         sim = torch.einsum('bhdi,bhdj->bhij', qf, kf)
-        qnorm = torch.tensor([max(W - 1, 1), max(H - 1, 1)],
-                             dtype=torch.float32, device=q.device)
+        qnorm = constant((max(W - 1, 1), max(H - 1, 1)), torch.float32,
+                         q.device)
         qgrid_n = (2.0 * _norm_grid(H, W, q.device) / qnorm - 1.0) \
             .reshape(H * W, 2)
         bias = self.cpb(qgrid_n, vgrid_n.reshape(B, hh * ww, 2))

@@ -12,7 +12,12 @@ time per request (union of kernel intervals), its idle share of the
 traced window, device time per kernel group and per stage of the
 request (`stage_ms`: each kernel under the innermost `ocrfdet.` span of
 `utils/spans.py` above the CPU op that launched it), and the ten kernels
-that take the most device time. `--span-cost N` adds what the span
+that take the most device time. The OcRF view transformer replays its
+CUDA graph there (models/detector.py): the profiler ties the replayed
+kernels to no CPU op, so `stage_ms` leaves them out (the busy time and
+the groups count them; busy minus the stages is the view transformer's
+device time), and its eight `ocrfdet.vt.*` parts record only where it
+runs eagerly. `--span-cost N` adds what the span
 recorder costs: N requests' forward and decode issued, alternately with
 a recorder active and without, each timed on the host clock from
 outside (medians), and one `span()` with nothing on and with a recorder
