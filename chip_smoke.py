@@ -1825,8 +1825,13 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     requests, one at a time as a server would. Every kernel's count is
     set to 0 just before the window and read just after: each of
     `path_kernels` must have launched exactly once per temporal frame of
-    each request, every other kernel never. A GeoEnhDet model's teacher
-    and aligner must not run. Per request it takes
+    each request, every other kernel never, and the NMS rows kernel
+    (`ops/nms.py::ROWS_KERNEL`) once a request, every task's NMS scanning
+    its rows; for the first requests, the rows of their decoded boxes
+    must equal the host's pair tests' bit for bit, and their detections
+    the host's pair tests'. A GeoEnhDet model's teacher and aligner must
+    not run. Returns each kernel's launches over the window, the rows
+    kernel's under "nms_rows". Per request it takes
     the host-clock times `entry.infer` records (dispatch of the forward
     and decode, the wait for the decoded boxes, host NMS) and the whole
     request (until `entry.infer` returns); over the window, the main
@@ -1835,6 +1840,7 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     from ocrfdet_tpu_torch import entry
     from ocrfdet_tpu_torch.bench_train import percentile
     from ocrfdet_tpu_torch.models.detector import OcRFDet
+    from ocrfdet_tpu_torch.ops import nms
 
     t0 = time.perf_counter()
     model = entry.build_detector(cfg, dev, seed=0)
@@ -1852,7 +1858,7 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     for i in range(n_warmup):
         entry.infer(model, batches[i % n_batches])
     torch.cuda.synchronize()
-    for k in all_kernels:
+    for k in all_kernels + [nms.ROWS_KERNEL]:
         k.launches = 0
     wall, parts, outs = [], [], []
     t_window, cpu_window = time.perf_counter(), time.thread_time()
@@ -1874,6 +1880,27 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
             raise AssertionError(f"{k.name}: {launches[k.name]} launches "
                                  f"over {n_requests} requests, expected "
                                  f"{want}")
+    rows_launches = launches["nms_rows"] = nms.ROWS_KERNEL.launches
+    if rows_launches != n_requests:
+        raise AssertionError(f"nms_rows: {rows_launches} launches over "
+                             f"{n_requests} requests, expected one each")
+    for p in parts:
+        c = p["counts"]
+        if c.get("nms_rows_tasks") != c["nms_tasks"]:
+            raise AssertionError(f"{c.get('nms_rows_tasks')} of "
+                                 f"{c['nms_tasks']} tasks scanned rows")
+    for preds, aux, decoded, dets in outs:
+        host = [{k: v.cpu().numpy() for k, v in d._asdict().items()}
+                for d in decoded]
+        bad = rows_differ(nms.nms_rows(decoded, cfg.head), host, cfg.head)
+        if bad:
+            raise AssertionError(f"{bad} rows differ from the host's pair "
+                                 f"tests")
+        want = nms.multi_task_nms([{k: v[0] for k, v in d.items()}
+                                   for d in host], cfg.head)
+        if not all(np.array_equal(dets[0][k], want[k]) for k in want):
+            raise AssertionError("the rows' detections differ from the "
+                                 "host's pair tests")
     if any(silent.values()):
         raise AssertionError(f"eval ran the distillation modules: {silent}")
     D = cfg.grid.num_depth_bins
@@ -1919,12 +1946,16 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
         f"host dispatch ms median "
         f"{ms(col('dispatch'), 50)} p90 {ms(col('dispatch'), 90)}, "
         f"{sum(col('dispatch')) / sum(wall):.2%} of the requests' time; "
-        f"wait for the device ms median {ms(col('wait'), 50)}; main thread "
+        f"wait for the device ms median {ms(col('wait'), 50)} (the decoded "
+        f"boxes and the NMS rows); main thread "
         f"on CPU {cpu_window:.3f} s of the window "
         f"({cpu_window / window:.2%}); launches {launches}")
-    log(f"[{tag}] decode + NMS on the host: NMS ms median "
-        f"{ms(col('nms'), 50)} p90 {ms(col('nms'), 90)}, copy of the "
-        f"decoded boxes (after the device is done) in the wait above; "
+    log(f"[{tag}] decode + NMS rows on the card, greedy scan on the host: "
+        f"NMS ms median {ms(col('nms'), 50)} p90 {ms(col('nms'), 90)}, "
+        f"{rows_launches} nms_rows launches, every task's NMS a scan of "
+        f"its rows, the first {len(outs)} requests' rows and detections "
+        f"equal to the host's pair tests'; copy of the decoded boxes and "
+        f"the rows (after the device is done) in the wait above; "
         f"{valid} decoded boxes above threshold -> "
         f"{len(outs[0][3][0]['boxes'])} detections (request 0)"
         + (f"; teacher and aligner calls {silent}" if silent else ""))
@@ -1971,6 +2002,130 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
             raise AssertionError(f"{name}: kernels vs plain {err:.3e} > "
                                  f"{tol:.1e}")
     return launches
+
+
+def rows_differ(rows, host, head) -> int:
+    """The rows (of tasks and samples) where the NMS rows kernel's bits,
+    rows [T, B, K, W] on the card, differ from the host's pair tests
+    (`ops/nms.py::pair_test_rows`) of the decoded boxes `host` (per task
+    a dict of numpy arrays [B, ...])."""
+    from ocrfdet_tpu_torch.ops import nms
+    got = rows.cpu().numpy().view(np.uint64)
+    bad = 0
+    for t, d in enumerate(host):
+        for b in range(got.shape[1]):
+            want = nms.pair_test_rows(d["boxes"][b], d["labels"][b], head, t)
+            bad += int((got[t, b] != want).any(-1).sum())
+    return bad
+
+
+def check_nms_rows(dev, smi):
+    """The NMS rows kernel (`ops/nms.py::nms_rows`, `csrc/nms.cu`) at the
+    served shapes: the flagship's decode (seeded random weights, the
+    inputs of `make_batch`) at batch 1 and 4. Its rows must equal
+    `nms_rows_plain`'s (on the CPU) and the host pair tests'
+    (`pair_test_rows`: glibc's sin and cos, not CUDA's) bit for bit, and
+    the same bits on a second launch. Logs its device time (by three
+    traces and by CUDA events), the plain version's host time, its bound
+    and the host NMS of one sample with the rows (the scan) and without
+    (the pair tests). The bound: the bytes at 3.35 TB/s, the circle
+    task's fp32 operations at 67 TFLOP/s, the rotated tasks' fp64 ones at
+    34 TFLOP/s, whichever takes longest; the operations are those the
+    kernel's code does, counted by the plain version where it branches
+    (`nms_rows_plain(work=)`: add, sub, mul, div and sqrt, each box's
+    set-up once, sincos not counted). Those peaks count an FMA as two
+    operations, and the kernel's arithmetic has none, so it cannot pass
+    half the bound's pace. Returns {batch: stats}."""
+    from ocrfdet_tpu_torch import entry
+    from ocrfdet_tpu_torch.config import ocrfdet_config
+    from ocrfdet_tpu_torch.ops import nms
+    stats = {}
+    for B in (1, 4):
+        cfg = ocrfdet_config(batch_size=B)
+        model = entry.build_detector(cfg, dev, seed=0)
+        batch = entry.make_batch(cfg, seed=0, batch_size=B, device=dev)
+        with torch.inference_mode():
+            preds, _ = model(batch)
+            decoded = entry.decode_all_tasks(preds, cfg.head, cfg.grid)
+        del model, batch, preds
+        torch.cuda.empty_cache()
+        before = nms.ROWS_KERNEL.launches
+        rows = nms.nms_rows(decoded, cfg.head)
+        rows2 = nms.nms_rows(decoded, cfg.head)
+        torch.cuda.synchronize()
+        if nms.ROWS_KERNEL.launches != before + 2:
+            raise AssertionError("nms_rows: not one launch a call")
+        cpu = [d._replace(**{k: v.cpu() for k, v in d._asdict().items()})
+               for d in decoded]
+        t = time.perf_counter()
+        want = nms.nms_rows(cpu, cfg.head)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        for got in (rows, rows2):
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"nms_rows at batch {B}: the kernel's "
+                                     f"bits differ from the plain version's")
+        host = [{k: v.numpy() for k, v in d._asdict().items()} for d in cpu]
+        bad = rows_differ(rows, host, cfg.head)
+        if bad:
+            raise AssertionError(f"nms_rows at batch {B}: {bad} rows differ "
+                                 f"from the host's pair tests")
+        traces = device_ms_traces(lambda: nms.nms_rows(decoded, cfg.head),
+                                  reps=50)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(50):
+            nms.nms_rows(decoded, cfg.head)
+        end.record()
+        torch.cuda.synchronize()
+        T, K = len(decoded), decoded[0].boxes.shape[1]
+        W = -(-K // 64)
+        work = {}
+        nms.nms_rows_plain([d.boxes for d in cpu], [d.labels for d in cpu],
+                           *nms.task_params(cfg.head), work=work)
+        nbytes_ = T * B * K * (9 * 4 + 8) + T * B * K * W * 8
+        parts = dict(bytes=nbytes_ / 3.35e12, fp32=work["fp32"] / 67e12,
+                     fp64=work["fp64"] / 34e12)
+        bound_by = max(parts, key=parts.get)
+        bound_ms = parts[bound_by] * 1e3
+        bits = rows.cpu().numpy().view(np.uint64)
+        tr = [{k: v[0] for k, v in d.items()} for d in host]
+        task_rows = list(bits[:, 0])
+        scan, pairs = [], []
+        for _ in range(20):
+            t = time.perf_counter()
+            got = nms.multi_task_nms(tr, cfg.head, rows=task_rows)
+            scan.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            ref = nms.multi_task_nms(tr, cfg.head)
+            pairs.append(time.perf_counter() - t)
+        if not all(np.array_equal(got[k], ref[k]) for k in ref):
+            raise AssertionError("the scan's set differs from the pair "
+                                 "tests'")
+        st = dict(ms=float(np.median(traces)), ms_traces=traces,
+                  ms_events=start.elapsed_time(end) / 50,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  bytes=nbytes_, fp32_ops=work["fp32"],
+                  fp64_ops=work["fp64"], near_pairs=work["near_pairs"],
+                  pairs=T * B * K * K,
+                  bits=int(np.unpackbits(bits.view(np.uint8)).sum()),
+                  host_scan_ms=float(np.median(scan)) * 1e3,
+                  host_pair_tests_ms=float(np.median(pairs)) * 1e3)
+        log(f"[nms-rows] batch {B}: rows [{T}, {B}, {K}, {W}] equal to the "
+            f"plain version's (twice) and the host pair tests' bit for "
+            f"bit, {st['bits']} bits set; kernel "
+            f"{st['ms']:.4f} ms a call (traces "
+            f"{', '.join(f'{x:.4f}' for x in traces)}; CUDA events "
+            f"{st['ms_events']:.4f}), bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({nbytes_} B, {work['fp32']} fp32 and "
+            f"{work['fp64']} fp64 operations; {work['near_pairs']} of "
+            f"{T * B * K * K} pairs clipped), plain version on the CPU "
+            f"{plain_ms:.1f} ms; host NMS of sample 0: the scan "
+            f"{st['host_scan_ms']:.3f} ms, the pair tests "
+            f"{st['host_pair_tests_ms']:.3f} ms; nvidia-smi: {smi}")
+        stats[B] = st
+        del decoded, rows, rows2
+        torch.cuda.empty_cache()
+    return stats
 
 
 def variant_launches(per_step):
@@ -3083,9 +3238,9 @@ def main() -> int:
     # the nine kernel functions and K4's backward binning; launch counts
     # are also checked for K3's backward ordering
     kernel_list, checked = _kernel_lists()
-    kernels.build(checked + [cvm.ROW_LOADS_KERNEL])
+    kernels.build(checked + [cvm.ROW_LOADS_KERNEL, nms.ROWS_KERNEL])
     nms.native_library()
-    sources = sorted({k.source for k in kernel_list})
+    sources = sorted({k.source for k in kernel_list + [nms.ROWS_KERNEL]})
     log(f"[build] {', '.join(sources)}, K1's load-counting build of "
         f"{cvm.ROW_LOADS_KERNEL.source} (nvcc) and nms.cpp (c++) -> "
         f"{kernels.BUILD_DIR.name}/ in {time.perf_counter() - t:.1f} s")
@@ -3102,10 +3257,12 @@ def main() -> int:
     stats["point_sample_bwd"], stats["point_sample_order"] = check_k4_bwd(
         cfg, dev)
     torch.cuda.empty_cache()
+    nms_rows_stats = check_nms_rows(dev, smi)
     check_slice(lss_cfg, dev, "lss", eval_kernels[:2], checked,
                 n_requests=30)
     torch.cuda.empty_cache()
-    check_slice(cfg, dev, "ocrf", eval_kernels, checked, n_requests=100)
+    ocrf_launches = check_slice(cfg, dev, "ocrf", eval_kernels, checked,
+                                n_requests=100)
     torch.cuda.empty_cache()
     # per training step: K1 and each forward of K2-K4 once per temporal
     # frame, their backwards (K3's with its ordering, K4's with its
@@ -3159,6 +3316,15 @@ def main() -> int:
                          source=f"ocrfdet_tpu_torch/csrc/{k.source}",
                          replaces=k.replaces, launches=launches[k.name],
                          **st, **space[k.name]))
+    # the NMS rows kernel: launches a request of the main path's window
+    st = dict(nms_rows_stats[1])
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by"):
+        st[f"{key}_b4"] = nms_rows_stats[4][key]
+    rows.append(dict(name=nms.ROWS_KERNEL.name, route="cuda",
+                     source=f"ocrfdet_tpu_torch/csrc/{nms.ROWS_KERNEL.source}",
+                     replaces=nms.ROWS_KERNEL.replaces,
+                     launches_per_request=ocrf_launches["nms_rows"] / 100,
+                     **st))
     log(json.dumps({"kernels": rows}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -15,6 +15,10 @@
 // meet (such boxes cannot intersect, so their IoU is 0 either way). At
 // the flagship's 500 decoded boxes per task most pairs are far apart,
 // and the test skips their polygon clip.
+//
+// On the card the pair tests run in csrc/nms.cu, which builds each
+// task's suppression rows with this file's arithmetic; the host then runs
+// only the greedy scan over those rows (nms_scan_rows).
 
 #include <cmath>
 #include <cstdint>
@@ -118,6 +122,26 @@ int nms_rotated(const double* boxes, int n, double iou_thr, int64_t* keep) {
       if (suppressed[j]) continue;
       if (pair_iou(boxes + 5 * i, boxes + 5 * j) > iou_thr) suppressed[j] = 1;
     }
+  }
+  return m;
+}
+
+// Greedy scan over suppression rows (csrc/nms.cu): rows [*, words], bit
+// j of row i set if box i, kept, suppresses box j; order [n] the
+// candidates' rows, best score first. Writes the positions in `order` of
+// the kept boxes to `keep`, at most max_keep of them, and returns their
+// number. A candidate is suppressed iff a kept box before it in `order`
+// has its bit, which is what nms_rotated's pair tests decide.
+int nms_scan_rows(const uint64_t* rows, int words, const int64_t* order,
+                  int n, int max_keep, int64_t* keep) {
+  std::vector<uint64_t> removed(words, 0);
+  int m = 0;
+  for (int a = 0; a < n && m < max_keep; ++a) {
+    const int64_t i = order[a];
+    if ((removed[i >> 6] >> (i & 63)) & 1) continue;
+    keep[m++] = a;
+    const uint64_t* r = rows + i * words;
+    for (int w = 0; w < words; ++w) removed[w] |= r[w];
   }
   return m;
 }

@@ -33,7 +33,7 @@ from .core.coder import decode_all_tasks
 from .data import synthetic
 from .models.detector import OcRFDet
 from .models.geoenh import GeoEnhDet
-from .ops.nms import multi_task_nms
+from .ops.nms import multi_task_nms, nms_rows
 from .train.step import TrainState, train_step  # noqa: F401 (entry point)
 from .utils import spans
 from .utils.weights import init_weights
@@ -101,35 +101,49 @@ def infer(model: OcRFDet, batch: Dict[str, torch.Tensor],
     detections), with detections one `multi_task_nms` result (numpy
     boxes [M,9] bottom-centred, scores [M], labels [M]) per sample.
 
+    Where the decoded boxes are on the card, the NMS pair tests of
+    every task and sample run there too, in one launch after the decode
+    (`ops/nms.py::nms_rows`), and the host scans their rows; on the CPU
+    the host tests the pairs.
+
     With `timings`, it records the request's spans (`utils/spans.py`)
-    and returns host-clock seconds: `dispatch` (the forward and the
-    decode issued), `wait` (the decoded boxes copied to the host, which
-    waits for the device) and `nms` (every sample's); `spans`, each
-    [name, parent, start_s, end_s] from the request's start; `request`,
-    the id the spans share; and `counts`: `nms_candidates` and
-    `nms_kept` (boxes into and out of the NMS calls), `vt_calls` and
-    `vt_replays` (the view transformer's calls, and those that replayed
-    its CUDA graph: models/detector.py) and, on the card, `allocs` (the
-    caching allocator's allocations over the dispatch)."""
+    and returns host-clock seconds: `dispatch` (the forward, the decode
+    and the NMS rows issued), `wait` (the decoded boxes and the rows
+    copied to the host, which waits for the device) and `nms` (every
+    sample's); `spans`, each [name, parent, start_s, end_s] from the
+    request's start; `request`, the id the spans share; and `counts`:
+    `nms_candidates` and `nms_kept` (boxes into and out of the NMS
+    calls), `nms_tasks` and `nms_rows_tasks` (the tasks' NMS calls, and
+    those that scanned the card's rows), `vt_calls` and `vt_replays`
+    (the view transformer's calls, and those that replayed its CUDA
+    graph: models/detector.py) and, on the card, `allocs` (the caching
+    allocator's allocations over the dispatch)."""
     dev = batch["imgs"].device
+    head = model.cfg.head
     with spans.recording() if timings is not None else nullcontext() as rec:
         allocs0 = spans.allocations(dev) if rec is not None else None
         with spans.span("ocrfdet.dispatch"):
             with spans.span("ocrfdet.forward"):
                 preds, aux = model(batch)
             with spans.span("ocrfdet.decode"):
-                decoded = decode_all_tasks(preds, model.cfg.head,
-                                           model.cfg.grid)
+                decoded = decode_all_tasks(preds, head, model.cfg.grid)
+            rows = None
+            if decoded[0].boxes.is_cuda:
+                with spans.span("ocrfdet.nms.rows"):
+                    rows = nms_rows(decoded, head)
         allocs1 = spans.allocations(dev) if rec is not None else None
         with spans.span("ocrfdet.wait"):
             host = [{k: v.cpu().numpy() for k, v in d._asdict().items()}
                     for d in decoded]
+            if rows is not None:
+                bits = rows.cpu().numpy().view(np.uint64)
         detections = []
         for b in range(batch["imgs"].shape[0]):
+            task_rows = None if rows is None else list(bits[:, b])
             with spans.span("ocrfdet.nms"):
                 detections.append(multi_task_nms(
-                    [{k: v[b] for k, v in d.items()} for d in host],
-                    model.cfg.head))
+                    [{k: v[b] for k, v in d.items()} for d in host], head,
+                    rows=task_rows))
     if rec is not None:
         counts = dict(rec.counts)
         if allocs0 is not None:

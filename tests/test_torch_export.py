@@ -1,9 +1,10 @@
 """The kernels as `torch.library` custom ops and the exported inference
 program (`ocrfdet_tpu_torch/tools/export.py`), on the CPU.
 
-* `torch.library.opcheck` on every `ocrfdet::` op at small shapes: its
-  schema, its fake (shape) implementation against the CPU one, its
-  autograd registration and AOT dispatch with dynamic shapes;
+* `torch.library.opcheck` on every `ocrfdet::` op at small shapes (the
+  NMS rows' too): its schema, its fake (shape) implementation against
+  the CPU one, its autograd registration and AOT dispatch with dynamic
+  shapes;
 * the registered backwards on the CPU give the plain versions' bits:
   K2's and K3's the autograd of the plain forward, K4's the plain walk
   in the kernel's order, K5's the written-out plain backward;
@@ -37,7 +38,7 @@ from ocrfdet_tpu_torch.tools import export
 ROOT = Path(__file__).resolve().parent.parent
 OPS = ("cost_volume", "bev_pool", "bev_pool_backward", "ht_pool",
        "ht_pool_backward", "point_sample", "point_sample_backward",
-       "composite_forward", "composite_backward")
+       "composite_forward", "composite_backward", "nms_rows")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -123,6 +124,12 @@ def _op_args(name):
         if name == "point_sample":
             return maps, px, py
         return px, py, torch.rand(*px.shape, maps.shape[-1], generator=g), H, W
+    if name == "nms_rows":
+        B, K = 2, 70
+        boxes = [torch.rand(B, K, 9, generator=g) * 4 for _ in range(3)]
+        labels = [torch.randint(0, 2, (B, K), generator=g) for _ in range(3)]
+        fac = [1.0] * 8 + [0.5, 2.0] + [1.0] * 6 + [1.0] * 8
+        return boxes, labels, [0, 0, 1], [0.1, 0.3, 1.0], fac, [-1, 2, 0]
     attrs, *dims = _k5(g, name == "composite_forward")
     if name == "composite_forward":
         return (attrs, *dims)
