@@ -1610,16 +1610,17 @@ def check_trainer(dev, all_kernels, eval_kernels, per_step, n_steps=2):
     for `n_steps` steps (with_prev 1, box mask on). Each step must
     launch exactly `per_step`, every loss must be finite and no step may
     be skipped. Then `run_eval` of the resumed run's EMA weights over the
-    held-out set at batch 1: each request exactly 2 launches of each
-    eval kernel and none of the others; the metrics dict and the results
-    JSON's sample count."""
+    held-out set at batch 1, each request an `entry.infer` call: exactly
+    2 launches of each eval kernel, 1 of the NMS rows kernel and none of
+    the others; the metrics dict and the results JSON's sample count."""
     import tempfile
 
-    from ocrfdet_tpu_torch import kernels
+    from ocrfdet_tpu_torch import entry, kernels
     from ocrfdet_tpu_torch.bench_train import percentile
     from ocrfdet_tpu_torch.config import ocrfdet_config
     from ocrfdet_tpu_torch.data.dataset import Loader, NuScenesDataset
     from ocrfdet_tpu_torch.data.fake_nuscenes import build_fake_nuscenes
+    from ocrfdet_tpu_torch.ops import nms
     from ocrfdet_tpu_torch.train import evaluate
     from ocrfdet_tpu_torch.train.trainer import Trainer
 
@@ -1715,24 +1716,26 @@ def check_trainer(dev, all_kernels, eval_kernels, per_step, n_steps=2):
                              num_workers=8)
         poses = {i["token"]: i["cams"]["CAM_FRONT"] for i in held_out.infos}
         per_request, times = [], []
-        forward = evaluate.eval_forward
+        infer = entry.infer
+        counted_kernels = all_kernels + [nms.ROWS_KERNEL]
 
         def counted(*args):
-            before = [k.launches for k in all_kernels]
+            before = [k.launches for k in counted_kernels]
             t = time.perf_counter()
-            out = forward(*args)
+            out = infer(*args)
             times.append(time.perf_counter() - t)
             per_request.append({k.name: k.launches - b
-                                for k, b in zip(all_kernels, before)})
+                                for k, b in zip(counted_kernels, before)})
             return out
         out_json = f"{root}/results.json"
         t0 = time.perf_counter()
-        with mock.patch.object(evaluate, "eval_forward", counted):
+        with mock.patch.object(entry, "infer", counted):
             metrics = evaluate.run_eval(cfg1, model, eval_loader,
                                         out_json=out_json,
                                         token_to_pose=poses)
         wall = time.perf_counter() - t0
         want = {k.name: 2 if k in eval_kernels else 0 for k in all_kernels}
+        want[nms.ROWS_KERNEL.name] = 1
         if len(per_request) != len(held_out) or any(
                 r != want for r in per_request):
             raise AssertionError(f"eval launches per request {per_request}, "
@@ -1745,10 +1748,12 @@ def check_trainer(dev, all_kernels, eval_kernels, per_step, n_steps=2):
             raise AssertionError(f"eval: {bad} out of [0, 1] or missing, "
                                  f"{n_json} samples in the JSON")
         log(f"[trainer] EMA eval of the resumed run over {len(held_out)} "
-            f"held-out samples at batch 1: {wall:.3f} s, forward + decode ms "
-            f"per request " + ", ".join(f"{t * 1e3:.3f}" for t in times)
+            f"held-out samples at batch 1: {wall:.3f} s, request ms "
+            f"(forward, decode, NMS) " + ", ".join(f"{t * 1e3:.3f}"
+                                                    for t in times)
             + f" (median {percentile(times, 50) * 1e3:.3f}); exactly 2 "
-            f"launches of each of K1-K4 per request; {n_json} samples in "
+            f"launches of each of K1-K4 and 1 of nms_rows per request; "
+            f"{n_json} samples in "
             f"the results JSON; metrics " + json.dumps(
                 {k: v for k, v in metrics.items() if k != "per_class_ap"}))
 
@@ -1828,10 +1833,11 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     each request, every other kernel never, and the NMS rows kernel
     (`ops/nms.py::ROWS_KERNEL`) once a request, every task's NMS scanning
     its rows; for the first requests, the rows of their decoded boxes
-    must equal the host's pair tests' bit for bit, and their detections
-    the host's pair tests'. A GeoEnhDet model's teacher and aligner must
-    not run. Returns each kernel's launches over the window, the rows
-    kernel's under "nms_rows". Per request it takes
+    must equal the host's pair tests' (`nms_rows` on the CPU) bit for
+    bit, and their detections those of the scan of the host's rows. A
+    GeoEnhDet model's teacher and aligner must not run. Returns each
+    kernel's launches over the window, the rows kernel's under
+    "nms_rows". Per request it takes
     the host-clock times `entry.infer` records (dispatch of the forward
     and decode, the wait for the decoded boxes, host NMS) and the whole
     request (until `entry.infer` returns); over the window, the main
@@ -1890,14 +1896,16 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
             raise AssertionError(f"{c.get('nms_rows_tasks')} of "
                                  f"{c['nms_tasks']} tasks scanned rows")
     for preds, aux, decoded, dets in outs:
-        host = [{k: v.cpu().numpy() for k, v in d._asdict().items()}
-                for d in decoded]
-        bad = rows_differ(nms.nms_rows(decoded, cfg.head), host, cfg.head)
+        cpu = [d._replace(**{k: v.cpu() for k, v in d._asdict().items()})
+               for d in decoded]
+        host_rows = nms.nms_rows(cpu, cfg.head)
+        bad = rows_differ(nms.nms_rows(decoded, cfg.head), host_rows)
         if bad:
             raise AssertionError(f"{bad} rows differ from the host's pair "
                                  f"tests")
-        want = nms.multi_task_nms([{k: v[0] for k, v in d.items()}
-                                   for d in host], cfg.head)
+        want = nms.multi_task_nms(
+            [{k: v[0].numpy() for k, v in d._asdict().items()} for d in cpu],
+            cfg.head, list(host_rows[:, 0].numpy().view(np.uint64)))
         if not all(np.array_equal(dets[0][k], want[k]) for k in want):
             raise AssertionError("the rows' detections differ from the "
                                  "host's pair tests")
@@ -2004,38 +2012,32 @@ def check_slice(cfg, dev, tag, path_kernels, all_kernels, n_requests,
     return launches
 
 
-def rows_differ(rows, host, head) -> int:
+def rows_differ(rows, host_rows) -> int:
     """The rows (of tasks and samples) where the NMS rows kernel's bits,
-    rows [T, B, K, W] on the card, differ from the host's pair tests
-    (`ops/nms.py::pair_test_rows`) of the decoded boxes `host` (per task
-    a dict of numpy arrays [B, ...])."""
-    from ocrfdet_tpu_torch.ops import nms
-    got = rows.cpu().numpy().view(np.uint64)
-    bad = 0
-    for t, d in enumerate(host):
-        for b in range(got.shape[1]):
-            want = nms.pair_test_rows(d["boxes"][b], d["labels"][b], head, t)
-            bad += int((got[t, b] != want).any(-1).sum())
-    return bad
+    rows [T, B, K, W] on the card, differ from `host_rows`, the host's
+    pair tests (`ops/nms.py::nms_rows` of the decoded boxes on the CPU:
+    glibc's sin and cos, not CUDA's)."""
+    return int((rows.cpu() != host_rows).any(-1).sum())
 
 
 def check_nms_rows(dev, smi):
     """The NMS rows kernel (`ops/nms.py::nms_rows`, `csrc/nms.cu`) at the
     served shapes: the flagship's decode (seeded random weights, the
     inputs of `make_batch`) at batch 1 and 4. Its rows must equal
-    `nms_rows_plain`'s (on the CPU) and the host pair tests'
-    (`pair_test_rows`: glibc's sin and cos, not CUDA's) bit for bit, and
-    the same bits on a second launch. Logs its device time (by three
-    traces and by CUDA events), the plain version's host time, its bound
-    and the host NMS of one sample with the rows (the scan) and without
-    (the pair tests). The bound: the bytes at 3.35 TB/s, the circle
-    task's fp32 operations at 67 TFLOP/s, the rotated tasks' fp64 ones at
-    34 TFLOP/s, whichever takes longest; the operations are those the
-    kernel's code does, counted by the plain version where it branches
-    (`nms_rows_plain(work=)`: add, sub, mul, div and sqrt, each box's
-    set-up once, sincos not counted). Those peaks count an FMA as two
-    operations, and the kernel's arithmetic has none, so it cannot pass
-    half the bound's pace. Returns {batch: stats}."""
+    `nms_rows_plain`'s (on the CPU) and the host pair tests' (`nms_rows`
+    on the CPU: glibc's sin and cos, not CUDA's) bit for bit, and the
+    same bits on a second launch; the scan of its rows must give the set
+    of the scan of the host's. Logs its device time (by three traces and
+    by CUDA events), the plain version's host time, its bound and the
+    host NMS of one sample with the card's rows (the scan) and with the
+    host's (their pair tests, then the scan). The bound: the bytes at
+    3.35 TB/s, the circle task's fp32 operations at 67 TFLOP/s, the
+    rotated tasks' fp64 ones at 34 TFLOP/s, whichever takes longest; the
+    operations are those the kernel's code does, counted by the plain
+    version where it branches (`nms_rows_plain(work=)`: add, sub, mul,
+    div and sqrt, each box's set-up once, sincos not counted). Those
+    peaks count an FMA as two operations, and the kernel's arithmetic has
+    none, so it cannot pass half the bound's pace. Returns {batch: stats}."""
     from ocrfdet_tpu_torch import entry
     from ocrfdet_tpu_torch.config import ocrfdet_config
     from ocrfdet_tpu_torch.ops import nms
@@ -2058,14 +2060,16 @@ def check_nms_rows(dev, smi):
         cpu = [d._replace(**{k: v.cpu() for k, v in d._asdict().items()})
                for d in decoded]
         t = time.perf_counter()
-        want = nms.nms_rows(cpu, cfg.head)
+        want = nms.nms_rows_plain([d.boxes for d in cpu],
+                                  [d.labels for d in cpu],
+                                  *nms.task_params(cfg.head))
         plain_ms = (time.perf_counter() - t) * 1e3
         for got in (rows, rows2):
             if not torch.equal(got.cpu(), want):
                 raise AssertionError(f"nms_rows at batch {B}: the kernel's "
                                      f"bits differ from the plain version's")
         host = [{k: v.numpy() for k, v in d._asdict().items()} for d in cpu]
-        bad = rows_differ(rows, host, cfg.head)
+        bad = rows_differ(rows, nms.nms_rows(cpu, cfg.head))
         if bad:
             raise AssertionError(f"nms_rows at batch {B}: {bad} rows differ "
                                  f"from the host's pair tests")
@@ -2090,13 +2094,17 @@ def check_nms_rows(dev, smi):
         bits = rows.cpu().numpy().view(np.uint64)
         tr = [{k: v[0] for k, v in d.items()} for d in host]
         task_rows = list(bits[:, 0])
+        cpu0 = [d._replace(**{k: v[:1] for k, v in d._asdict().items()})
+                for d in cpu]
         scan, pairs = [], []
         for _ in range(20):
             t = time.perf_counter()
-            got = nms.multi_task_nms(tr, cfg.head, rows=task_rows)
+            got = nms.multi_task_nms(tr, cfg.head, task_rows)
             scan.append(time.perf_counter() - t)
             t = time.perf_counter()
-            ref = nms.multi_task_nms(tr, cfg.head)
+            host_rows = nms.nms_rows(cpu0, cfg.head)
+            ref = nms.multi_task_nms(
+                tr, cfg.head, list(host_rows[:, 0].numpy().view(np.uint64)))
             pairs.append(time.perf_counter() - t)
         if not all(np.array_equal(got[k], ref[k]) for k in ref):
             raise AssertionError("the scan's set differs from the pair "
@@ -2120,7 +2128,7 @@ def check_nms_rows(dev, smi):
             f"{work['fp64']} fp64 operations; {work['near_pairs']} of "
             f"{T * B * K * K} pairs clipped), plain version on the CPU "
             f"{plain_ms:.1f} ms; host NMS of sample 0: the scan "
-            f"{st['host_scan_ms']:.3f} ms, the pair tests "
+            f"{st['host_scan_ms']:.3f} ms, the host's rows and their scan "
             f"{st['host_pair_tests_ms']:.3f} ms; nvidia-smi: {smi}")
         stats[B] = st
         del decoded, rows, rows2

@@ -1,11 +1,16 @@
-// Rotated-rectangle IoU + greedy NMS on the host (C plain ABI, loaded
-// via ctypes by ocrfdet_tpu_torch/ops/nms.py, which builds it with
+// The host side of the port's BEV NMS (C plain ABI, loaded via ctypes by
+// ocrfdet_tpu_torch/ops/nms.py, which builds it with
 // `c++ -O3 -shared -fPIC` at first use).
 //
-// A copy of native/nms.cpp, the JAX package's replacement for the
-// reference's mmcv CUDA nms_rotated (mmdet3d/core/post_processing/
-// box3d_nms.py:231-268): NMS runs on the host after the decode, where a
-// tight C++ loop over <= 1000 boxes per task beats a device round trip.
+// A request's NMS is the pair tests as suppression rows, then a greedy
+// scan over them. rotated_iou_matrix is the pair test of the rotated
+// tasks on the CPU (ops/nms.py builds the CPU's rows from it); on the
+// card csrc/nms.cu builds the rows with this file's arithmetic.
+// nms_scan_rows is the scan, on every device.
+//
+// The IoU is a copy of native/nms.cpp, the JAX package's replacement
+// for the reference's mmcv CUDA nms_rotated (mmdet3d/core/
+// post_processing/box3d_nms.py:231-268).
 //
 // Box layout: (cx, cy, dx, dy, yaw), yaw counter-clockwise radians.
 // Intersection by Sutherland–Hodgman convex clipping.
@@ -15,10 +20,6 @@
 // meet (such boxes cannot intersect, so their IoU is 0 either way). At
 // the flagship's 500 decoded boxes per task most pairs are far apart,
 // and the test skips their polygon clip.
-//
-// On the card the pair tests run in csrc/nms.cu, which builds each
-// task's suppression rows with this file's arithmetic; the host then runs
-// only the greedy scan over those rows (nms_scan_rows).
 
 #include <cmath>
 #include <cstdint>
@@ -110,28 +111,12 @@ void rotated_iou_matrix(const double* a, int na, const double* b, int nb,
       out[i * nb + j] = pair_iou(a + 5 * i, b + 5 * j);
 }
 
-// boxes sorted by descending score; returns number kept and writes
-// kept indices (into the sorted order) to `keep`.
-int nms_rotated(const double* boxes, int n, double iou_thr, int64_t* keep) {
-  std::vector<char> suppressed(n, 0);
-  int m = 0;
-  for (int i = 0; i < n; ++i) {
-    if (suppressed[i]) continue;
-    keep[m++] = i;
-    for (int j = i + 1; j < n; ++j) {
-      if (suppressed[j]) continue;
-      if (pair_iou(boxes + 5 * i, boxes + 5 * j) > iou_thr) suppressed[j] = 1;
-    }
-  }
-  return m;
-}
-
 // Greedy scan over suppression rows (csrc/nms.cu): rows [*, words], bit
 // j of row i set if box i, kept, suppresses box j; order [n] the
 // candidates' rows, best score first. Writes the positions in `order` of
 // the kept boxes to `keep`, at most max_keep of them, and returns their
 // number. A candidate is suppressed iff a kept box before it in `order`
-// has its bit, which is what nms_rotated's pair tests decide.
+// has its bit: the greedy NMS over the pair tests that built the rows.
 int nms_scan_rows(const uint64_t* rows, int words, const int64_t* order,
                   int n, int max_keep, int64_t* keep) {
   std::vector<uint64_t> removed(words, 0);

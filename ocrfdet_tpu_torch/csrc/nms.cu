@@ -24,7 +24,7 @@
 //       FMA, as on the host, which has none.
 //     circle task: d2 <= (float)radius, d2 = (x_i - x_j)^2 + (y_i - y_j)^2
 //       in fp32 with __fsub_rn / __fmul_rn / __fadd_rn: the arithmetic of
-//       circle_nms in numpy float32.
+//       the CPU's rows (ops/nms.py::_host_bits) in numpy float32.
 //   Bits past K are 0. Valid and invalid boxes alike get rows: the host
 //   reads only the rows and bits of valid ones.
 //

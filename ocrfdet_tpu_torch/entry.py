@@ -101,10 +101,9 @@ def infer(model: OcRFDet, batch: Dict[str, torch.Tensor],
     detections), with detections one `multi_task_nms` result (numpy
     boxes [M,9] bottom-centred, scores [M], labels [M]) per sample.
 
-    Where the decoded boxes are on the card, the NMS pair tests of
-    every task and sample run there too, in one launch after the decode
-    (`ops/nms.py::nms_rows`), and the host scans their rows; on the CPU
-    the host tests the pairs.
+    The NMS pair tests of every task and sample run after the decode
+    on the decoded boxes' device (`ops/nms.py::nms_rows`: on the card
+    one launch), and the host scans their rows.
 
     With `timings`, it records the request's spans (`utils/spans.py`)
     and returns host-clock seconds: `dispatch` (the forward, the decode
@@ -114,7 +113,7 @@ def infer(model: OcRFDet, batch: Dict[str, torch.Tensor],
     request's start; `request`, the id the spans share; and `counts`:
     `nms_candidates` and `nms_kept` (boxes into and out of the NMS
     calls), `nms_tasks` and `nms_rows_tasks` (the tasks' NMS calls, and
-    those that scanned the card's rows), `vt_calls` and `vt_replays`
+    those that scanned rows built on the card), `vt_calls` and `vt_replays`
     (the view transformer's calls, and those that replayed its CUDA
     graph: models/detector.py) and, on the card, `allocs` (the caching
     allocator's allocations over the dispatch)."""
@@ -127,25 +126,23 @@ def infer(model: OcRFDet, batch: Dict[str, torch.Tensor],
                 preds, aux = model(batch)
             with spans.span("ocrfdet.decode"):
                 decoded = decode_all_tasks(preds, head, model.cfg.grid)
-            rows = None
-            if decoded[0].boxes.is_cuda:
-                with spans.span("ocrfdet.nms.rows"):
-                    rows = nms_rows(decoded, head)
+            with spans.span("ocrfdet.nms.rows"):
+                rows = nms_rows(decoded, head)
         allocs1 = spans.allocations(dev) if rec is not None else None
         with spans.span("ocrfdet.wait"):
             host = [{k: v.cpu().numpy() for k, v in d._asdict().items()}
                     for d in decoded]
-            if rows is not None:
-                bits = rows.cpu().numpy().view(np.uint64)
+            bits = rows.cpu().numpy().view(np.uint64)
         detections = []
         for b in range(batch["imgs"].shape[0]):
-            task_rows = None if rows is None else list(bits[:, b])
             with spans.span("ocrfdet.nms"):
                 detections.append(multi_task_nms(
                     [{k: v[b] for k, v in d.items()} for d in host], head,
-                    rows=task_rows))
+                    list(bits[:, b])))
     if rec is not None:
         counts = dict(rec.counts)
+        if rows.is_cuda:              # every task scanned the card's rows
+            counts["nms_rows_tasks"] = counts.get("nms_tasks", 0)
         if allocs0 is not None:
             counts["allocs"] = allocs1 - allocs0
         timings.update(dispatch=rec.seconds("ocrfdet.dispatch"),

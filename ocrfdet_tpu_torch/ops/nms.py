@@ -1,26 +1,31 @@
 """BEV NMS (rotated + circle) and the Scale-NMS task merge
 (counterpart of ocrfdet_tpu/ops/nms.py and ops/_nms_native.py).
 
-The numpy code is the plain version. The rotated IoU and the greedy
-rotated NMS also have a C++ path (`csrc/nms.cpp`, a copy of the JAX
-package's native/nms.cpp), compiled with `c++ -O3 -shared -fPIC` at
-first use into `build/` at the root of the checkout (git-ignored; the
-file name carries a hash of the source) and loaded with ctypes. The
-C++ path is the default (`native=True`); if it cannot be built, the
-call raises: there is no silent fallback to numpy.
+Every request on every device takes one path:
 
-On the card the pair tests move to the device: `nms_rows` (the custom
-op `ocrfdet::nms_rows`, kernel `csrc/nms.cu`) builds every task's
-suppression rows of a request in one launch after the decode, bit j of
-row i set if box i, kept, suppresses box j (the rotated tasks' IoU in
-fp64 after the Scale-NMS rescale in fp32, the circle task's distance in
-fp32: the arithmetic of the host paths). `multi_task_nms` given those
-rows hands each task's candidates to `nms_rotated` and `circle_nms`
-carrying them (`with_rows`), and those run only the greedy scan
-(`csrc/nms.cpp::nms_scan_rows`) in their own `np.argsort` order, so the
-kept set is the host path's. Its plain version, `nms_rows_plain`, runs
-for CPU tensors; `entry.infer` asks for rows only when the decoded
-boxes are on the card.
+1. `nms_rows` (the custom op `ocrfdet::nms_rows`) builds every task's
+   suppression rows of a request after the decode: bit j of row i set
+   if box i, kept, suppresses box j (a rotated task's IoU in fp64 after
+   the Scale-NMS rescale in fp32 > its threshold; the circle task's
+   squared distance in fp32 <= its radius). On the card it is one
+   launch of `csrc/nms.cu`; on the CPU the host's pair tests
+   (`_host_bits`: the C++ `rotated_iou_matrix`). Both do the arithmetic
+   of `csrc/nms.cpp`.
+2. `multi_task_nms` hands each task's candidates with its rows to
+   `nms_rotated` and `circle_nms`, which run only the greedy scan
+   (`csrc/nms.cpp::nms_scan_rows`) in their own `np.argsort` order.
+
+The rows reach those two functions as a view of the candidates
+(`_Candidates`, made by `with_rows`) so that their signatures stay the
+plain NMS's: the benchmark's planted faults replace them by name with
+functions that read the candidates' scores.
+
+`nms_rows_plain` is the kernel's plain version in PyTorch, its oracle
+in the tests, and counts its operations (`work=`). `csrc/nms.cpp` (a
+copy of the JAX package's native/nms.cpp with the scan added) is
+compiled with `c++ -O3 -shared -fPIC` at first use into `build/` at the
+root of the checkout (git-ignored; the file name carries a hash of the
+source) and loaded with ctypes; if it cannot be built, the call raises.
 
 Scale-NMS (class-wise box rescaling before NMS, then un-scaling) and
 the cross-task merge follow CenterHead.get_task_detections / get_bboxes
@@ -96,9 +101,6 @@ def native_library():
         lib.rotated_iou_matrix.argtypes = [dbl, ctypes.c_int, dbl,
                                            ctypes.c_int, dbl]
         lib.rotated_iou_matrix.restype = None
-        lib.nms_rotated.argtypes = [dbl, ctypes.c_int, ctypes.c_double,
-                                    ctypes.POINTER(ctypes.c_int64)]
-        lib.nms_rotated.restype = ctypes.c_int
         i64 = ctypes.POINTER(ctypes.c_int64)
         lib.nms_scan_rows.argtypes = [ctypes.c_void_p, ctypes.c_int, i64,
                                       ctypes.c_int, ctypes.c_int, i64]
@@ -111,84 +113,20 @@ def _dptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
 
 
-def _box_corners(boxes: np.ndarray) -> np.ndarray:
-    """[N, 5] (cx, cy, dx, dy, yaw) -> [N, 4, 2] corner polygons."""
-    cx, cy, dx, dy, yaw = boxes.T
-    cos, sin = np.cos(yaw), np.sin(yaw)
-    hx, hy = dx / 2, dy / 2
-    local = np.stack([
-        np.stack([hx, hy], -1), np.stack([-hx, hy], -1),
-        np.stack([-hx, -hy], -1), np.stack([hx, -hy], -1)], axis=1)
-    rot = np.stack([np.stack([cos, -sin], -1),
-                    np.stack([sin, cos], -1)], axis=1)   # [N,2,2]
-    pts = np.einsum('nij,nkj->nki', rot, local)
-    pts[..., 0] += cx[:, None]
-    pts[..., 1] += cy[:, None]
-    return pts
-
-
-def _cross2(u, v) -> float:
-    return u[0] * v[1] - u[1] * v[0]
-
-
-def _poly_clip(subject: np.ndarray, clip: np.ndarray) -> np.ndarray:
-    """Sutherland-Hodgman convex clip of polygon `subject` by `clip`."""
-    out = list(subject)
-    n = len(clip)
-    for i in range(n):
-        a, b = clip[i], clip[(i + 1) % n]
-        edge = b - a
-        inp, out = out, []
-        if not inp:
-            break
-        prev = inp[-1]
-        prev_in = _cross2(edge, prev - a) >= 0
-        for cur in inp:
-            cur_in = _cross2(edge, cur - a) >= 0
-            if cur_in != prev_in:
-                t_den = _cross2(edge, cur - prev)
-                if abs(t_den) > 1e-12:
-                    t = _cross2(edge, a - prev) / t_den
-                    out.append(prev + t * (cur - prev))
-            if cur_in:
-                out.append(cur)
-            prev, prev_in = cur, cur_in
-    return np.asarray(out)
-
-
-def _poly_area(p: np.ndarray) -> float:
-    if len(p) < 3:
-        return 0.0
-    x, y = p[:, 0], p[:, 1]
-    return 0.5 * abs(np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1)))
-
-
-def rotated_iou_matrix(boxes_a: np.ndarray, boxes_b: np.ndarray,
-                       native: bool = True) -> np.ndarray:
-    """Exact IoU of rotated BEV rectangles [*,5] (cx, cy, dx, dy, yaw)."""
-    if native:
-        a = np.ascontiguousarray(boxes_a, dtype=np.float64)
-        b = np.ascontiguousarray(boxes_b, dtype=np.float64)
-        out = np.zeros((len(a), len(b)), dtype=np.float64)
-        native_library().rotated_iou_matrix(_dptr(a), len(a), _dptr(b),
-                                            len(b), _dptr(out))
-        return out
-    ca = _box_corners(boxes_a)
-    cb = _box_corners(boxes_b)
-    area_a = boxes_a[:, 2] * boxes_a[:, 3]
-    area_b = boxes_b[:, 2] * boxes_b[:, 3]
-    iou = np.zeros((len(boxes_a), len(boxes_b)))
-    for i in range(len(boxes_a)):
-        for j in range(len(boxes_b)):
-            inter = _poly_area(_poly_clip(ca[i], cb[j]))
-            union = area_a[i] + area_b[j] - inter
-            if union > 1e-12:
-                iou[i, j] = inter / union
-    return iou
+def rotated_iou_matrix(boxes_a: np.ndarray,
+                       boxes_b: np.ndarray) -> np.ndarray:
+    """Exact IoU of rotated BEV rectangles [*,5] (cx, cy, dx, dy, yaw),
+    in float64 (`csrc/nms.cpp::rotated_iou_matrix`)."""
+    a = np.ascontiguousarray(boxes_a, dtype=np.float64)
+    b = np.ascontiguousarray(boxes_b, dtype=np.float64)
+    out = np.zeros((len(a), len(b)), dtype=np.float64)
+    native_library().rotated_iou_matrix(_dptr(a), len(a), _dptr(b), len(b),
+                                        _dptr(out))
+    return out
 
 
 class _Candidates(np.ndarray):
-    """A task's candidates that carry the card's suppression rows."""
+    """A task's candidates that carry the task's suppression rows."""
 
 
 def with_rows(candidates: np.ndarray, rows: np.ndarray,
@@ -196,8 +134,8 @@ def with_rows(candidates: np.ndarray, rows: np.ndarray,
     """`candidates` (what `nms_rotated` or `circle_nms` takes for a task)
     as a view that carries the task's suppression rows over its decoded
     boxes, `rows` [K, W] uint64 (`nms_rows`), and `index` [N], each
-    candidate's row there. Those functions then scan the rows and test
-    no pair; what they read of `candidates` is the scores alone."""
+    candidate's row there. Those functions scan the rows; what they read
+    of `candidates` is the scores alone."""
     c = np.asarray(candidates).view(_Candidates)
     c.rows, c.index = rows, np.asarray(index, dtype=np.int64)
     return c
@@ -222,118 +160,46 @@ def scan_rows(rows: np.ndarray, order: np.ndarray,
         rows.ctypes.data_as(ctypes.c_void_p), W,
         order.ctypes.data_as(i64), len(order), len(keep),
         keep.ctypes.data_as(i64))
-    count("nms_rows_tasks", 1)
     return keep[:n]
 
 
 def nms_rotated(boxes: np.ndarray, scores: np.ndarray, iou_thr: float,
                 pre_max_size: int | None = None,
-                post_max_size: int | None = None,
-                native: bool = True) -> np.ndarray:
-    """Greedy rotated NMS; boxes [N, 5] (cx, cy, dx, dy, yaw), or a
-    task's candidates carrying the card's suppression rows
-    (`with_rows`), which are scanned instead of testing pairs. Returns
-    the kept indices, best score first."""
+                post_max_size: int | None = None) -> np.ndarray:
+    """Greedy rotated NMS of a task's candidates carrying its suppression
+    rows (`with_rows`; the rows hold the pair tests at `iou_thr`): the
+    scan in `np.argsort(-scores)` order. Returns the kept indices, best
+    score first."""
     order = np.argsort(-scores)
     if pre_max_size is not None:
         order = order[:pre_max_size]
-    if isinstance(boxes, _Candidates):
-        keep = scan_rows(boxes.rows, boxes.index[order],
-                         post_max_size or len(order))
-        return order[keep]
-    if native:
-        b = np.ascontiguousarray(boxes[order], dtype=np.float64)
-        keep_local = np.zeros(len(b), dtype=np.int64)
-        n = native_library().nms_rotated(
-            _dptr(b), len(b), ctypes.c_double(iou_thr),
-            keep_local.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-        keep = order[keep_local[:n]]
-        return keep[:post_max_size] if post_max_size else keep
-    boxes_s = boxes[order]
-    iou = rotated_iou_matrix(boxes_s, boxes_s, native=False)
-    n = len(order)
-    suppressed = np.zeros(n, dtype=bool)
-    keep = []
-    for i in range(n):
-        if suppressed[i]:
-            continue
-        keep.append(order[i])
-        suppressed |= iou[i] > iou_thr
-        suppressed[i] = True
-    keep = np.asarray(keep, dtype=np.int64)
-    if post_max_size is not None:
-        keep = keep[:post_max_size]
-    return keep
+    keep = scan_rows(boxes.rows, boxes.index[order],
+                     post_max_size or len(order))
+    return order[keep]
 
 
 def circle_nms(centers_scores: np.ndarray, radius_thr: float,
                post_max_size: int = 83) -> np.ndarray:
-    """Centre-distance NMS [N, 3] (x, y, score); squared-distance
-    threshold as in the reference. Candidates carrying the card's
-    suppression rows (`with_rows`) are scanned instead."""
-    if isinstance(centers_scores, _Candidates):
-        scores = np.asarray(centers_scores)[:, 2]
-        order = np.argsort(-scores)
-        keep = scan_rows(centers_scores.rows, centers_scores.index[order],
-                         len(order) if post_max_size is None
-                         else post_max_size)
-        return order[keep]
-    x, y, scores = centers_scores.T
-    order = np.argsort(-scores)
-    suppressed = np.zeros(len(order), dtype=bool)
-    keep = []
-    for oi, i in enumerate(order):
-        if suppressed[i]:
-            continue
-        keep.append(i)
-        d2 = (x[i] - x[order[oi + 1:]]) ** 2 + (y[i] - y[order[oi + 1:]]) ** 2
-        suppressed[order[oi + 1:][d2 <= radius_thr]] = True
-    return np.asarray(keep[:post_max_size], dtype=np.int64)
-
-
-def scale_nms_bev(boxes: np.ndarray, labels: np.ndarray,
-                  factor) -> np.ndarray:
-    """A rotated task's decoded boxes [N, 9] after the Scale-NMS rescale
-    of dx, dy, dz by `factor` (one, or one a class), as the pair tests
-    take them: [N, 5] (cx, cy, dx, dy, yaw)."""
-    scaled = boxes.copy()
-    if isinstance(factor, (tuple, list)):
-        for cid, f in enumerate(factor):
-            scaled[labels == cid, 3:6] *= f
-    else:
-        scaled[:, 3:6] *= factor
-    return scaled[:, [0, 1, 3, 4, 6]]
-
-
-def pair_test_rows(boxes: np.ndarray, labels: np.ndarray, head_cfg,
-                   t: int) -> np.ndarray:
-    """Task t's suppression rows over one sample's decoded boxes [K, 9]
-    float32 and labels [K], from the host's pair tests: the C++
-    `rotated_iou_matrix` after `scale_nms_bev`, or `circle_nms`'s float32
-    distance. [K, ceil(K/64)] uint64, what `nms_rows` builds on the
-    card."""
-    if head_cfg.nms_type[t] == "circle":
-        x, y = boxes[:, 0], boxes[:, 1]
-        d2 = (x[:, None] - x[None]) ** 2 + (y[:, None] - y[None]) ** 2
-        bits = d2 <= head_cfg.circle_nms_min_radius[t]
-    else:
-        bev = scale_nms_bev(boxes, labels, head_cfg.nms_rescale_factor[t])
-        bits = rotated_iou_matrix(bev, bev) > head_cfg.nms_thr[t]
-    return _pack(torch.from_numpy(bits)).numpy().view(np.uint64)
+    """Centre-distance NMS of a task's candidates [N, 3] (x, y, score)
+    carrying its suppression rows (`with_rows`; the rows hold the
+    squared-distance tests at `radius_thr`): the scan in
+    `np.argsort(-score)` order."""
+    order = np.argsort(-np.asarray(centers_scores)[:, 2])
+    keep = scan_rows(centers_scores.rows, centers_scores.index[order],
+                     len(order) if post_max_size is None else post_max_size)
+    return order[keep]
 
 
 def multi_task_nms(task_results: List[Dict[str, np.ndarray]], head_cfg,
-                   native: bool = True,
-                   rows: Optional[Sequence[np.ndarray]] = None
-                   ) -> Dict[str, np.ndarray]:
+                   rows: Sequence[np.ndarray]) -> Dict[str, np.ndarray]:
     """Scale-NMS over the decoded tasks of ONE sample, then merge.
 
     task_results[t]: dict(boxes [K,9], scores [K], labels [K], valid
     [K]) from core.coder.decode_task as numpy (thresholded via
-    `valid`). rows: None (the host tests the pairs), or per task this
-    sample's suppression rows ([K, W] uint64 from `nms_rows`). Returns
-    dict(boxes [M,9] with bottom-centre z, scores [M], labels [M] global
-    class ids).
+    `valid`); rows[t]: this sample's suppression rows of task t ([K, W]
+    uint64 from `nms_rows`, which rescaled and tested the pairs).
+    Returns dict(boxes [M,9] with bottom-centre z, scores [M], labels
+    [M] global class ids).
     """
     merged_boxes, merged_scores, merged_labels = [], [], []
     class_offset = 0
@@ -343,28 +209,22 @@ def multi_task_nms(task_results: List[Dict[str, np.ndarray]], head_cfg,
         scores = res["scores"][m]
         labels = res["labels"][m]
         n_cls = len(head_cfg.tasks[t].class_names)
-        task_rows = rows[t] if rows is not None else None
         if len(boxes):
             count("nms_tasks", 1)
             if head_cfg.nms_type[t] == "circle":
-                radius = head_cfg.circle_nms_min_radius[t]
-                cands = np.concatenate([boxes[:, :2], scores[:, None]], -1)
-                if task_rows is not None:
-                    cands = with_rows(cands, task_rows, np.flatnonzero(m))
+                cands = with_rows(
+                    np.concatenate([boxes[:, :2], scores[:, None]], -1),
+                    rows[t], np.flatnonzero(m))
                 with span("ocrfdet.nms.circle"):
-                    keep = circle_nms(cands, radius,
+                    keep = circle_nms(cands, head_cfg.circle_nms_min_radius[t],
                                       post_max_size=head_cfg.post_max_size)
             else:
-                if task_rows is not None:   # rescaled and tested on the card
-                    bev = with_rows(boxes, task_rows, np.flatnonzero(m))
-                else:
-                    bev = scale_nms_bev(boxes, labels,
-                                        head_cfg.nms_rescale_factor[t])
+                cands = with_rows(boxes, rows[t], np.flatnonzero(m))
                 with span("ocrfdet.nms.rotated"):
                     keep = nms_rotated(
-                        bev, scores, head_cfg.nms_thr[t],
+                        cands, scores, head_cfg.nms_thr[t],
                         pre_max_size=head_cfg.pre_max_size,
-                        post_max_size=head_cfg.post_max_size, native=native)
+                        post_max_size=head_cfg.post_max_size)
             count("nms_candidates", len(boxes))
             count("nms_kept", len(keep))
             boxes, scores, labels = boxes[keep], scores[keep], labels[keep]
@@ -603,13 +463,42 @@ def _check_rows_inputs(boxes, labels, circle, thr, fac, nfac):
             raise ValueError(f"nms_rows: task {t}: {nfac[t]} factors")
 
 
+def _host_bits(boxes: np.ndarray, labels: np.ndarray, circle: int,
+               thr: float, fac: Sequence[float], nfac: int) -> np.ndarray:
+    """The host's pair tests of one task of one sample: boxes [K, 9]
+    float32, labels [K], the rest the task's arguments of `nms_rows`.
+    The circle task: the squared distance <= thr in fp32. A rotated
+    task: the Scale-NMS rescale of dx, dy in fp32 (by fac[0], or by
+    fac[c] for a label c below nfac), then the C++ `rotated_iou_matrix`
+    > thr. Returns bits [K, K] bool: row i, column j."""
+    if circle:
+        x, y = boxes[:, 0], boxes[:, 1]
+        d2 = (x[:, None] - x[None]) ** 2 + (y[:, None] - y[None]) ** 2
+        return d2 <= np.float32(thr)
+    f = np.full(len(labels), fac[0] if nfac < 0 else 1.0, np.float32)
+    for c in range(max(nfac, 0)):
+        f[labels == c] = fac[c]
+    bev = np.stack([boxes[:, 0], boxes[:, 1], boxes[:, 3] * f,
+                    boxes[:, 4] * f, boxes[:, 6]], 1)
+    return rotated_iou_matrix(bev, bev) > thr
+
+
 # --------------------------------------------- the custom op of nms_rows
 @torch.library.custom_op(f"{kernels.OPS_NAMESPACE}::nms_rows",
                          mutates_args=(), device_types="cpu")
 def _nms_rows_op(boxes: List[torch.Tensor], labels: List[torch.Tensor],
                  circle: List[int], thr: List[float], fac: List[float],
                  nfac: List[int]) -> torch.Tensor:
-    return nms_rows_plain(boxes, labels, circle, thr, fac, nfac)
+    _check_rows_inputs(boxes, labels, circle, thr, fac, nfac)
+    B, K = labels[0].shape
+    rows = torch.zeros((len(boxes), B, K, -(-K // 64)), dtype=torch.int64)
+    for t in range(len(boxes)):
+        bx, lab = boxes[t].numpy(), labels[t].numpy()
+        f = fac[t * MAX_CLASSES:(t + 1) * MAX_CLASSES]
+        for b in range(B):
+            rows[t, b] = _pack(torch.from_numpy(_host_bits(
+                bx[b], lab[b], circle[t], thr[t], f, nfac[t])))
+    return rows
 
 
 @_nms_rows_op.register_kernel("cuda")
@@ -641,8 +530,9 @@ def nms_rows(decoded, head_cfg):
     """The suppression rows of every task and sample of a request
     (`ocrfdet::nms_rows`): decoded, `core.coder.decode_all_tasks`'s
     boxes per task. On CUDA tensors one launch of `csrc/nms.cu`, on CPU
-    tensors `nms_rows_plain`. Returns rows [T, B, K, ceil(K/64)] int64,
-    as `nms_rows_plain`."""
+    tensors the host's pair tests (`_host_bits`). Returns rows [T, B, K,
+    ceil(K/64)] int64: bit j % 64 of word j // 64 of row i set if box i,
+    kept, suppresses box j."""
     return _nms_rows_op([d.boxes.contiguous() for d in decoded],
                         [d.labels.contiguous() for d in decoded],
                         *task_params(head_cfg))

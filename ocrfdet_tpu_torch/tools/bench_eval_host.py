@@ -4,10 +4,12 @@ tools_tpu/bench_eval_host.py).
   python -m ocrfdet_tpu_torch.tools.bench_eval_host [--samples 300] \\
       [--val-size 6019] [--out build/bench_eval_host.json]
 
-Times the per-sample Scale-NMS (`ops/nms.py::multi_task_nms` on the C++
-library `csrc/nms.cpp`, built with the host's `c++` at first use) and
-the evaluator (`core/eval_metrics.py`: accumulate per sample, then one
-summarize) on synthetic decoded predictions with the statistics of a
+Times the per-sample Scale-NMS as the CPU runs it: the suppression
+rows built by the op `ocrfdet::nms_rows` on the CPU (the pair tests in
+the C++ library `csrc/nms.cpp`, built with the host's `c++` at first
+use), then `ops/nms.py::multi_task_nms`'s scan; and the evaluator
+(`core/eval_metrics.py`: accumulate per sample, then one summarize) on
+synthetic decoded predictions with the statistics of a
 real decode: 6 tasks x 500 candidates, ~8% above the score threshold,
 boxes in clusters so that the rotated-IoU suppression has work to do;
 12 ground-truth boxes a sample. Extrapolates to the `--val-size` samples
@@ -24,6 +26,7 @@ import time
 from typing import Dict
 
 import numpy as np
+import torch
 
 from ..kernels import BUILD_DIR
 
@@ -60,16 +63,24 @@ def main(argv=None) -> Dict:
     args = ap.parse_args(argv)
 
     from ..config import ocrfdet_config
+    from ..core.coder import DecodedBoxes
     from ..core.eval_metrics import DetectionEvaluator
-    from ..ops.nms import multi_task_nms, native_library
+    from ..ops.nms import multi_task_nms, native_library, nms_rows
 
     cfg = ocrfdet_config()
     rng = np.random.default_rng(0)
     samples = [fake_decoded(rng) for _ in range(args.samples)]
     native_library()                      # the build is not timed
 
+    def host_nms(sample):
+        rows = nms_rows([DecodedBoxes(**{k: torch.from_numpy(v[None])
+                                         for k, v in task.items()})
+                         for task in sample], cfg.head)
+        return multi_task_nms(sample, cfg.head,
+                              list(rows[:, 0].numpy().view(np.uint64)))
+
     t0 = time.perf_counter()
-    merged = [multi_task_nms(s, cfg.head) for s in samples]
+    merged = [host_nms(s) for s in samples]
     t_nms = time.perf_counter() - t0
 
     ev = DetectionEvaluator(cfg.class_names)

@@ -1,5 +1,6 @@
-"""Evaluation runner: eval forward + decode (device) -> Scale-NMS
-(host) -> native metrics + devkit-compatible JSON (counterpart of
+"""Evaluation runner: a request of `entry.infer` a batch (eval forward,
+decode and the NMS rows on the model's device, the scan on the host) ->
+native metrics + devkit-compatible JSON (counterpart of
 ocrfdet_tpu/train/evaluate.py on one device), and the eval model of a
 run's EMA weights (counterpart of `train/optim.py::resolve_ema`).
 
@@ -8,18 +9,13 @@ Mirrors tools/test.py + CenterHead.get_bboxes + NuScenesDataset
 weights (the reference evaluates epoch_N_ema.pth)."""
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Union
-
-import numpy as np
-import torch
+from typing import Dict, Mapping, Optional, Union
 
 from .. import entry
 from ..config import OcRFDetConfig
-from ..core.coder import decode_all_tasks
 from ..core.eval_metrics import DetectionEvaluator
 from ..core.nusc_format import boxes_to_nusc_sample, write_results_json
 from ..models.detector import OcRFDet
-from ..ops.nms import multi_task_nms
 from .step import TrainState
 from .trainer import device_batch
 
@@ -63,17 +59,6 @@ def raw_detector(cfg: OcRFDetConfig, state: TrainState) -> OcRFDet:
     return model.eval().to(next(state.model.parameters()).device)
 
 
-@torch.inference_mode()
-def eval_forward(cfg: OcRFDetConfig, model: OcRFDet,
-                 batch: Dict) -> List[Dict[str, np.ndarray]]:
-    """The forward and decode of one batch on the model's device; the
-    decoded boxes of each task as numpy arrays on the host."""
-    preds, _ = model(batch)
-    decoded = decode_all_tasks(preds, cfg.head, cfg.grid)
-    return [{k: v.cpu().numpy() for k, v in d._asdict().items()}
-            for d in decoded]
-
-
 def run_eval(cfg: OcRFDetConfig, model: OcRFDet, loader,
              out_json: Optional[str] = None,
              max_batches: Optional[int] = None,
@@ -102,13 +87,9 @@ def run_eval(cfg: OcRFDetConfig, model: OcRFDet, loader,
         for bi, batch in enumerate(batches):
             if max_batches is not None and bi >= max_batches:
                 break
-            decoded = eval_forward(cfg, model, device_batch(
+            _, _, _, dets = entry.infer(model, device_batch(
                 batch, with_prev, 0.0, device))
-            B = batch["imgs"].shape[0]
-            for b in range(B):
-                task_results = [
-                    {k: v[b] for k, v in d.items()} for d in decoded]
-                det = multi_task_nms(task_results, cfg.head)
+            for b, det in enumerate(dets):
                 gt_boxes = batch["gt_boxes"][b]
                 gt_labels = batch["gt_labels"][b]
                 # evaluator compares gravity-centred z; det boxes are

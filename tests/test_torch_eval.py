@@ -29,6 +29,8 @@ from ocrfdet_tpu.data.fake_nuscenes import build_fake_nuscenes
 from ocrfdet_tpu.models.detector import OcRFDet as JaxOcRFDet
 from ocrfdet_tpu.train import evaluate as jeval
 from ocrfdet_tpu_torch import config as tconfig
+from ocrfdet_tpu_torch import entry as tentry
+from ocrfdet_tpu_torch.core.coder import DecodedBoxes
 from ocrfdet_tpu_torch.core import eval_metrics as tmetrics
 from ocrfdet_tpu_torch.core import nusc_format as tnusc
 from ocrfdet_tpu_torch.data import dataset as tdataset
@@ -176,16 +178,30 @@ def _jax_run(es, monkeypatch, decoded=None):
 
 
 def _port_run(es, monkeypatch, decoded=None):
+    """The port's run_eval; returns (metrics, JSON, the decoded outputs
+    of each batch, recorded at `entry.infer`'s decode). With `decoded`,
+    the model's forward is skipped and the decode returns those
+    instead."""
     seen = []
-    fwd = teval.eval_forward
+    decode = tentry.decode_all_tasks
+    dtypes = dict(boxes=torch.float32, scores=torch.float32,
+                  labels=torch.int64, valid=torch.bool)
 
-    def recording(cfg, model, batch):
-        out = decoded[len(seen)] if decoded is not None else \
-            fwd(cfg, model, batch)
-        seen.append(out)
+    def recording(preds, head, grid):
+        if decoded is None:
+            out = decode(preds, head, grid)
+        else:
+            out = [DecodedBoxes(**{k: torch.tensor(np.asarray(v),
+                                                   dtype=dtypes[k])
+                                   for k, v in d.items()})
+                   for d in decoded[len(seen)]]
+        seen.append([{k: v.numpy() for k, v in d._asdict().items()}
+                     for d in out])
         return out
     with monkeypatch.context() as m:
-        m.setattr(teval, "eval_forward", recording)
+        m.setattr(tentry, "decode_all_tasks", recording)
+        if decoded is not None:
+            m.setattr(es["model"], "forward", lambda batch: (None, None))
         path = es["root"] / "port.json"
         metrics = teval.run_eval(es["cfg"], es["model"], es["tloader"],
                                  out_json=str(path))

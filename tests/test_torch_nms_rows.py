@@ -1,19 +1,19 @@
-"""The NMS pair tests as suppression rows (`ops/nms.py::nms_rows`, kernel
-`csrc/nms.cu`) and the host's greedy scan over them
-(`csrc/nms.cpp::nms_scan_rows`).
+"""The NMS pair tests as suppression rows (`ops/nms.py::nms_rows`: kernel
+`csrc/nms.cu` on the card, the host's pair tests on the CPU) and the
+host's greedy scan over them (`csrc/nms.cpp::nms_scan_rows`).
 
-On the CPU: the scan over `nms_rows_plain`'s rows gives exactly the
-served set of the host's pair tests (`multi_task_nms` without rows, on
-the C++ path) and of the benchmark's frozen reference
+On the CPU: the scan over the CPU's rows and over `nms_rows_plain`'s
+rows gives exactly the set of the benchmark's frozen reference
 (`portbench/ref/ops/nms.py`), on flagship-sized decodes (6 tasks, K 500,
 the flagship's thresholds and Scale-NMS factors), on bf16-rounded
 scores whose tied boxes overlap, with no valid box, with every box
 valid, with `pre_max_size` below K and a small `post_max_size`, and a
 circle pair exactly at the radius; the `no_suppression` fault still
-takes hold where rows are given. The plain rows equal, bit for bit, the
-rows of the host's pair tests (`pair_test_rows`); no clip can pass the
-kernel's vertex buffer; and the plain version counts the kernel's
-operations as its code does them.
+takes hold. The plain rows equal, bit for bit, the CPU's rows (the
+host's pair tests); no clip can pass the kernel's vertex buffer; the
+plain version counts the kernel's operations as its code does them;
+and a CPU request builds the host's rows, counts no scan of the card's
+rows and serves the reference's set.
 
 On the card (marker `cuda`, skipped without CUDA; this file imports no
 JAX, so it runs with `--noconftest`): the kernel's rows equal
@@ -95,19 +95,25 @@ def _same(a, b):
                                                     "labels"))
 
 
-def _check_sets(decoded, head=HEAD, with_ref=True):
-    """Every sample's set from the rows equals the host's pair tests' (and
-    the reference's); returns the sets."""
+def _plain(decoded, head=HEAD):
+    return nms.nms_rows_plain([d.boxes for d in decoded],
+                              [d.labels for d in decoded],
+                              *nms.task_params(head))
+
+
+def _check_sets(decoded, head=HEAD):
+    """Every sample's set from the CPU's rows and from the plain rows
+    equals the reference's; returns the CPU's rows and the sets."""
     rows = nms.nms_rows(decoded, head)
+    plain = _plain(decoded, head)
     host = _host(decoded)
     sets = []
     for b in range(decoded[0].boxes.shape[0]):
         tr = _sample(host, b)
-        want = nms.multi_task_nms(tr, head)
-        got = nms.multi_task_nms(tr, head, rows=_task_rows(rows, b))
-        assert _same(got, want)
-        if with_ref:
-            assert _same(got, ref_nms.multi_task_nms(tr, head))
+        want = ref_nms.multi_task_nms(tr, head)
+        for r in (rows, plain):
+            got = nms.multi_task_nms(tr, head, _task_rows(r, b))
+            assert _same(got, want)
         sets.append(got)
     return rows, sets
 
@@ -154,7 +160,7 @@ def test_edge_cases(kind):
     n = len(sets[0]["boxes"])
     want_tasks = {"no_valid": 0, "one_task_empty": 4}.get(kind, 6)
     assert rec.counts.get("nms_tasks", 0) == 2 * want_tasks
-    assert rec.counts.get("nms_rows_tasks", 0) == want_tasks
+    assert "nms_rows_tasks" not in rec.counts     # counted by entry.infer
     if kind == "no_valid":
         assert n == 0
     if kind == "post_max_size":
@@ -184,28 +190,24 @@ def test_circle_pair_exactly_at_the_radius():
     keep = nms.circle_nms(nms.with_rows(
         cands, rows[t, 0].numpy().view(np.uint64), np.arange(8)), r)
     assert keep.tolist() == [0, 2, 3, 4, 5, 6, 7]
-    assert keep.tolist() == nms.circle_nms(cands, r).tolist()
+    assert keep.tolist() == ref_nms.circle_nms(cands, r).tolist()
 
 
 def test_no_suppression_fault_takes_hold_with_rows():
+    """Planted, each task keeps its best-scoring boxes: the reference's
+    set where no pair suppresses."""
     decoded = _decode(5, K=200, spread=6.0)
     rows = nms.nms_rows(decoded, HEAD)
     tr = _sample(_host(decoded), 0)
-    sound = nms.multi_task_nms(tr, HEAD, rows=_task_rows(rows, 0))
+    sound = nms.multi_task_nms(tr, HEAD, _task_rows(rows, 0))
     with faults.planted("no_suppression"):
-        unsuppressed = nms.multi_task_nms(tr, HEAD)
-        got = nms.multi_task_nms(tr, HEAD, rows=_task_rows(rows, 0))
-    assert _same(got, unsuppressed)
+        got = nms.multi_task_nms(tr, HEAD, _task_rows(rows, 0))
+    none = dataclasses.replace(
+        HEAD, nms_thr=(np.inf,) * len(HEAD.tasks),
+        circle_nms_min_radius=(-np.inf,) * len(HEAD.tasks))
+    assert _same(got, ref_nms.multi_task_nms(tr, none))
+    assert _same(sound, ref_nms.multi_task_nms(tr, HEAD))
     assert not _same(got, sound)
-
-
-def _pair_test_rows(decoded, head=HEAD):
-    """[T, B, K, W] uint64: every task's and sample's rows from the
-    host's pair tests."""
-    host = _host(decoded)
-    return np.stack([np.stack([
-        nms.pair_test_rows(d["boxes"][b], d["labels"][b], head, t)
-        for b in range(len(d["boxes"]))]) for t, d in enumerate(host)])
 
 
 @pytest.mark.parametrize("seed", [4, 5])
@@ -213,8 +215,8 @@ def test_plain_rows_equal_the_host_pair_tests(seed):
     """Bit for bit, every row of every task: the rescale, the fp64 clip
     and the fp32 circle test are the host's."""
     decoded = _decode(seed, spread=[8.0, 25.0][seed - 4])
-    rows = nms.nms_rows(decoded, HEAD).numpy().view(np.uint64)
-    want = _pair_test_rows(decoded)
+    rows = _plain(decoded).numpy().view(np.uint64)
+    want = nms.nms_rows(decoded, HEAD).numpy().view(np.uint64)
     assert np.array_equal(rows, want)
     assert np.unpackbits(want.view(np.uint8)).sum() > 2 * 6 * 500
 
@@ -291,17 +293,23 @@ def test_task_params_of_the_flagship():
 
 
 def test_cpu_requests_test_their_pairs_on_the_host():
-    """On the CPU `entry.infer` builds no rows: every task's NMS tests
-    its pairs, and the kernel is never launched."""
+    """On the CPU `entry.infer` builds the host's rows (span
+    `ocrfdet.nms.rows`, no launch of the kernel), counts no scan of the
+    card's rows, and serves the reference's set."""
+    from portbench import check
     cfg = tiny_config()
     model = entry.build_detector(cfg, device="cpu")
     batch = entry.make_batch(cfg, seed=0, device="cpu")
     launches = nms.ROWS_KERNEL.launches
     tm = {}
-    entry.infer(model, batch, timings=tm)
+    preds, _, _, dets = entry.infer(model, batch, timings=tm)
     assert nms.ROWS_KERNEL.launches == launches
+    assert tm["counts"]["nms_tasks"] > 0
     assert "nms_rows_tasks" not in tm["counts"]
-    assert not any(s[0] == "ocrfdet.nms.rows" for s in tm["spans"])
+    assert [s[1] for s in tm["spans"] if s[0] == "ocrfdet.nms.rows"] == [
+        "ocrfdet.dispatch"]
+    want = check.expected_detections(preds, cfg.head, cfg.grid)
+    assert check.set_gap(dets, want) == 0
 
 
 # ------------------------------------------------------------ on the card
@@ -332,11 +340,11 @@ def test_kernel_rows_equal_the_plain_rows(dev, B):
     assert nms.ROWS_KERNEL.launches == before + 1
     cpu = [d._replace(**{k: v.cpu() for k, v in d._asdict().items()})
            for d in decoded]
-    assert torch.equal(rows.cpu(), nms.nms_rows(cpu, HEAD))
+    assert torch.equal(rows.cpu(), _plain(cpu))
     # and on random decodes whose boxes overlap more
     rnd = [d._replace(**{k: v.to(dev) for k, v in d._asdict().items()})
            for d in _decode(B, B=B, spread=4.0, levels=8)]
-    want = nms.nms_rows(_decode(B, B=B, spread=4.0, levels=8), HEAD)
+    want = _plain(_decode(B, B=B, spread=4.0, levels=8))
     assert torch.equal(nms.nms_rows(rnd, HEAD).cpu(), want)
 
 
@@ -352,8 +360,8 @@ def test_kernel_rows_equal_the_host_pair_tests(dev, B):
                for x in d]
         gpu = [x._replace(**{k: v.to(dev) for k, v in x._asdict().items()})
                for x in d]
-        rows = nms.nms_rows(gpu, HEAD).cpu().numpy().view(np.uint64)
-        assert np.array_equal(rows, _pair_test_rows(cpu))
+        rows = nms.nms_rows(gpu, HEAD).cpu()
+        assert torch.equal(rows, nms.nms_rows(cpu, HEAD))
 
 
 @pytest.mark.cuda

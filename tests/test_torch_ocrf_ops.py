@@ -16,8 +16,9 @@ projection, kernel K3's and K4's plain versions, and the host NMS.
   1e-6, with boundary points in (-1, 0) and (W-1, W);
   against `point_sample_mm` in interpret mode: rtol 3e-2, atol 2e-2
   (bf16 products; tests/test_point_sample.py).
-* NMS: the port's rotated IoU (numpy and C++) against the JAX one
-  (atol 1e-9, both in float64), and `multi_task_nms` (numpy and C++)
+* NMS: the port's rotated IoU (C++) against the JAX one (atol 1e-9,
+  both in float64), and `multi_task_nms` over the CPU's suppression
+  rows (`nms_rows`: the host's pair tests) and over `nms_rows_plain`'s
   against the JAX one on the tiny config's decoded boxes: identical
   kept sets, boxes and scores to 1e-6.
 """
@@ -199,15 +200,13 @@ def _random_boxes(rng, n, spread=6.0):
                      rng.uniform(-np.pi, np.pi, n)], -1)
 
 
-def test_rotated_iou_numpy_and_native_match_jax():
+def test_rotated_iou_matches_jax():
     rng = np.random.default_rng(0)
     a, b = _random_boxes(rng, 25), _random_boxes(rng, 30)
     want = jnms.rotated_iou_matrix(a, b)
     assert (want > 0).sum() > 20
-    for native in (False, True):
-        np.testing.assert_allclose(
-            tnms.rotated_iou_matrix(a, b, native=native), want, rtol=0,
-            atol=1e-9, err_msg=f"native={native}")
+    np.testing.assert_allclose(tnms.rotated_iou_matrix(a, b), want, rtol=0,
+                               atol=1e-9)
 
 
 def test_native_nms_library_is_built_from_the_port():
@@ -244,19 +243,27 @@ def decoded_tiny():
         cfg.head, cfg.grid)
     jdec = [{k: np.asarray(v) for k, v in d._asdict().items()}
             for d in jdec]
-    tdec = [{k: v.numpy() for k, v in d._asdict().items()} for d in tdec]
     return jcfg, cfg, jdec, tdec
 
 
-@pytest.mark.parametrize("native", [False, True], ids=["numpy", "cpp"])
-def test_multi_task_nms_matches_jax(decoded_tiny, native):
-    jcfg, cfg, jdec, tdec = decoded_tiny
+@pytest.mark.parametrize("rows", ["plain", "cpp"])
+def test_multi_task_nms_matches_jax(decoded_tiny, rows):
+    jcfg, cfg, jdec, decoded = decoded_tiny
+    if rows == "cpp":               # the op on the CPU: the host's pair tests
+        bits = tnms.nms_rows(decoded, cfg.head)
+    else:
+        bits = tnms.nms_rows_plain([d.boxes for d in decoded],
+                                   [d.labels for d in decoded],
+                                   *tnms.task_params(cfg.head))
+    bits = bits.numpy().view(np.uint64)
+    tdec = [{k: v.numpy() for k, v in d._asdict().items()} for d in decoded]
     suppressed = 0
     for b in range(2):
         want = jnms.multi_task_nms([{k: v[b] for k, v in d.items()}
                                     for d in jdec], jcfg.head)
         got = tnms.multi_task_nms([{k: v[b] for k, v in d.items()}
-                                   for d in tdec], cfg.head, native=native)
+                                   for d in tdec], cfg.head,
+                                  list(bits[:, b]))
         assert len(got["boxes"]) == len(want["boxes"]) > 0
         np.testing.assert_array_equal(got["labels"], want["labels"])
         np.testing.assert_allclose(got["scores"], want["scores"], rtol=1e-6)

@@ -21,6 +21,7 @@ TABLE = {
     "ocrfdet.dispatch": (None, 1),
     "ocrfdet.forward": ("ocrfdet.dispatch", 1),
     "ocrfdet.decode": ("ocrfdet.dispatch", 1),
+    "ocrfdet.nms.rows": ("ocrfdet.dispatch", 1),
     "ocrfdet.wait": (None, 1),
     "ocrfdet.nms": (None, 1),
     "ocrfdet.nms.circle": ("ocrfdet.nms", None),
